@@ -1,0 +1,171 @@
+"""mpk_guard — the MPKLink guard MAC: CUDA kernels and their plain versions.
+
+The port of ``repro.kernels.mpk_guard``. The channel's domain ``tag`` seeds
+a 128-lane Horner MAC (``h = h·P + row``, h0 = INIT + tag) that is folded
+to one uint32 word by Σ h_i·P^(127-i):
+
+* :func:`guard_copy_cuda` — the receive-side protected copy: copies the
+  payload and computes its MAC in the same pass, ``ok = mac == expected``;
+* :func:`mac_batch_cuda` — N frames of equal row count MAC'd in one launch;
+* :func:`mac_init_state_cuda` / :func:`mac_update_cuda` /
+  :func:`mac_finalize_cuda` — the streaming form: an explicit (128,) state
+  advanced block by block, so any split of a payload gives the one-shot MAC.
+
+Each ``*_cuda`` function launches the kernel of ``csrc/mpk_guard.cu`` on the
+current stream (it raises for anything the kernel does not take); each
+``*_plain`` function is the same computation in plain PyTorch (int64 with
+32-bit masking, see ``ref``). ``kernels.ops`` picks one by the tensor's
+device and counts the launches. Tags and expected MACs are Python ints.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+from repro_torch.kernels.ref import LANES, MAC_INIT, MASK32
+
+CHUNK_ROWS = 64        # payload rows per CUDA block
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_U32 = ctypes.c_uint32
+_SIGNATURES = {
+    "mpk_guard_copy": (_P, _P, _P, _P, _P, _I64, _I64, _U32, _U32, _P),
+    "mpk_mac_batch": (_P, _P, _P, _I64, _I64, _I64, _U32, _P),
+    "mpk_mac_update": (_P, _P, _P, _P, _I64, _I64, _P),
+    "mpk_mac_init": (_P, _U32, _P),
+    "mpk_mac_finalize": (_P, _P, _P),
+}
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def guard_copy_plain(payload_u32: torch.Tensor, tag: int, expected_mac: int):
+    """(copy, mac (1,) uint32, ok (1,) int32)."""
+    return ref.guard_copy_ref(payload_u32, tag, expected_mac)
+
+
+def mac_batch_plain(stack_u32: torch.Tensor, tag: int) -> torch.Tensor:
+    """(N, rows, 128) uint32 → (N,) uint32 MACs."""
+    h0 = torch.full((stack_u32.shape[0], LANES), (MAC_INIT + tag) & MASK32,
+                    dtype=torch.int64, device=stack_u32.device)
+    return ref.fold_lanes(ref.mac_state(stack_u32, h0)).to(torch.uint32)
+
+
+def mac_init_state_plain(tag: int, device) -> torch.Tensor:
+    """Fresh (128,) uint32 Horner state for ``tag``."""
+    return torch.full((LANES,), (MAC_INIT + tag) & MASK32, dtype=torch.int64,
+                      device=device).to(torch.uint32)
+
+
+def mac_update_plain(h: torch.Tensor, block_u32: torch.Tensor) -> torch.Tensor:
+    """h·P^m + Σ_r row_r·P^(m-1-r) for an (m, 128) block → (128,) uint32."""
+    return ref.mac_state(block_u32, h.to(torch.int64)).to(torch.uint32)
+
+
+def mac_finalize_plain(h: torch.Tensor) -> torch.Tensor:
+    """Fold a (128,) state to the MAC word → (1,) uint32."""
+    return ref.fold_lanes(h.to(torch.int64)).reshape(1).to(torch.uint32)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launchers
+# ---------------------------------------------------------------------------
+
+def _lib():
+    return _build.load("mpk_guard", _SIGNATURES)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_rows(t: torch.Tensor, ndim: int, what: str) -> None:
+    if (t.device.type != "cuda" or t.dtype != torch.uint32 or t.ndim != ndim
+            or t.shape[-1] != LANES or not t.is_contiguous()):
+        raise ValueError(f"{what}: needs a contiguous CUDA uint32 tensor of "
+                         f"{ndim} dims with {LANES} lanes, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _n_chunks(rows: int) -> int:
+    return -(-rows // CHUNK_ROWS)
+
+
+def guard_copy_cuda(payload_u32: torch.Tensor, tag: int, expected_mac: int):
+    """(copy, mac (1,) uint32, ok (1,) int32) from one kernel pass."""
+    _check_rows(payload_u32, 2, "guard_copy")
+    rows = payload_u32.shape[0]
+    dev = payload_u32.device
+    copy = torch.empty_like(payload_u32)
+    partials = torch.empty(max(1, _n_chunks(rows)), dtype=torch.uint32, device=dev)
+    mac = torch.empty(1, dtype=torch.uint32, device=dev)
+    ok = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().mpk_guard_copy(
+            payload_u32.data_ptr(), copy.data_ptr(), partials.data_ptr(),
+            mac.data_ptr(), ok.data_ptr(), rows, CHUNK_ROWS, tag & MASK32,
+            expected_mac & MASK32, _stream(payload_u32))
+    _build.check(rc, "mpk_guard_copy")
+    return copy, mac, ok
+
+
+def mac_batch_cuda(stack_u32: torch.Tensor, tag: int) -> torch.Tensor:
+    """(N, rows, 128) uint32 → (N,) uint32 MACs, one launch."""
+    _check_rows(stack_u32, 3, "mac_batch")
+    frames, rows = stack_u32.shape[0], stack_u32.shape[1]
+    if not 0 < frames <= 65535:
+        raise ValueError(f"mac_batch: 1..65535 frames per launch, got {frames}")
+    dev = stack_u32.device
+    partials = torch.empty(max(1, frames * _n_chunks(rows)), dtype=torch.uint32,
+                           device=dev)
+    macs = torch.empty(frames, dtype=torch.uint32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().mpk_mac_batch(stack_u32.data_ptr(), partials.data_ptr(),
+                                  macs.data_ptr(), frames, rows, CHUNK_ROWS,
+                                  tag & MASK32, _stream(stack_u32))
+    _build.check(rc, "mpk_mac_batch")
+    return macs
+
+
+def mac_init_state_cuda(tag: int, device) -> torch.Tensor:
+    """Fresh (128,) uint32 Horner state for ``tag`` on a CUDA device."""
+    out = torch.empty(LANES, dtype=torch.uint32, device=device)
+    if out.device.type != "cuda":
+        raise ValueError(f"mac_init_state: CUDA device required, got {device}")
+    with torch.cuda.device(out.device):
+        rc = _lib().mpk_mac_init(out.data_ptr(), tag & MASK32, _stream(out))
+    _build.check(rc, "mpk_mac_init")
+    return out
+
+
+def mac_update_cuda(h: torch.Tensor, block_u32: torch.Tensor) -> torch.Tensor:
+    """Advance a (128,) uint32 state over an (m, 128) block (m may be 0)."""
+    _check_rows(block_u32, 2, "mac_update block")
+    _check_rows(h, 1, "mac_update state")
+    rows = block_u32.shape[0]
+    dev = block_u32.device
+    partials = torch.empty(max(1, _n_chunks(rows)) * LANES, dtype=torch.uint32,
+                           device=dev)
+    out = torch.empty(LANES, dtype=torch.uint32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib().mpk_mac_update(h.data_ptr(), block_u32.data_ptr(),
+                                   partials.data_ptr(), out.data_ptr(), rows,
+                                   CHUNK_ROWS, _stream(block_u32))
+    _build.check(rc, "mpk_mac_update")
+    return out
+
+
+def mac_finalize_cuda(h: torch.Tensor) -> torch.Tensor:
+    """Fold a (128,) uint32 state to the MAC word → (1,) uint32."""
+    _check_rows(h, 1, "mac_finalize state")
+    mac = torch.empty(1, dtype=torch.uint32, device=h.device)
+    with torch.cuda.device(h.device):
+        rc = _lib().mpk_mac_finalize(h.data_ptr(), mac.data_ptr(), _stream(h))
+    _build.check(rc, "mpk_mac_finalize")
+    return mac

@@ -1,0 +1,113 @@
+"""Public kernel entry points: dispatch by tensor device, launch counts.
+
+Every entry point runs the plain PyTorch version for a tensor on the CPU
+and launches the hand-written CUDA kernel for a tensor on a CUDA device;
+there is no fallback between the two, and any other device raises. Each
+CUDA launch adds one to its kernel's count in :data:`LAUNCHES`, so a run
+can show that its main path went through the kernels (``chip_smoke.py``
+zeroes the counts, drives the server and reads them).
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import mpk_guard as _mg
+
+KERNELS = ("guard_copy", "mac_batch", "mac_init_state", "mac_update",
+           "mac_finalize", "decode_attention")
+
+
+class LaunchCounts:
+    """Per-kernel CUDA launch counters, safe to bump from many threads."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+    def bump(self, name: str) -> None:
+        with self._lock:
+            self._n[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = dict.fromkeys(KERNELS, 0)
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._n)
+
+
+LAUNCHES = LaunchCounts()
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def guard_copy(payload_u32: torch.Tensor, tag: int, expected_mac: int):
+    """(copy, mac (1,) uint32, ok (1,) int32) of an (n, 128) uint32
+    payload; n may be 0 (a header-only frame)."""
+    if not _on_cuda(payload_u32):
+        return _mg.guard_copy_plain(payload_u32, tag, expected_mac)
+    out = _mg.guard_copy_cuda(payload_u32, tag, expected_mac)
+    LAUNCHES.bump("guard_copy")
+    return out
+
+
+def mac_batch(stack_u32: torch.Tensor, tag: int) -> torch.Tensor:
+    """(N, rows, 128) uint32 stack → (N,) uint32 MACs."""
+    if not _on_cuda(stack_u32):
+        return _mg.mac_batch_plain(stack_u32, tag)
+    out = _mg.mac_batch_cuda(stack_u32, tag)
+    LAUNCHES.bump("mac_batch")
+    return out
+
+
+def mac_init_state(tag: int, device) -> torch.Tensor:
+    """Fresh (128,) uint32 streaming-MAC state for ``tag`` on ``device``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return _mg.mac_init_state_plain(tag, device)
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {device}")
+    out = _mg.mac_init_state_cuda(tag, device)
+    LAUNCHES.bump("mac_init_state")
+    return out
+
+
+def mac_update(h: torch.Tensor, block_u32: torch.Tensor) -> torch.Tensor:
+    """Advance a streaming-MAC state over one (m, 128) uint32 block."""
+    if not _on_cuda(block_u32):
+        return _mg.mac_update_plain(h, block_u32)
+    out = _mg.mac_update_cuda(h, block_u32)
+    LAUNCHES.bump("mac_update")
+    return out
+
+
+def mac_finalize(h: torch.Tensor) -> torch.Tensor:
+    """Fold a streaming-MAC state to the (1,) uint32 MAC word."""
+    if not _on_cuda(h):
+        return _mg.mac_finalize_plain(h)
+    out = _mg.mac_finalize_cuda(h)
+    LAUNCHES.bump("mac_finalize")
+    return out
+
+
+def decode_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Single-token attention, q (B, 1, H, Dh) over k/v (B, S, Hkv, Dh)."""
+    if not _on_cuda(q):
+        return _da.decode_attention_plain(q, k, v, q_pos, kv_pos,
+                                          causal=causal, window=window)
+    out = _da.decode_attention_cuda(q, k, v, q_pos, kv_pos, causal=causal,
+                                    window=window)
+    LAUNCHES.bump("decode_attention")
+    return out

@@ -1,0 +1,4 @@
+from repro_torch.models.model import decode_step, init_decode_state, init_params
+from repro_torch.models.transformer import Impl
+
+__all__ = ["decode_step", "init_decode_state", "init_params", "Impl"]

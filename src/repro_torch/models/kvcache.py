@@ -1,0 +1,58 @@
+"""Dense KV caches for serving (the port of the dense subset of
+``repro.models.kvcache``).
+
+A layer's cache is ``{"k", "v"}`` of (B, S_max, H_kv, Dh); a stack's caches
+carry a leading L axis. Inserts write IN PLACE into the given tensors (the
+reference returns new arrays) and return the same dict.
+
+An insert position past the end is clamped to the last slot, as
+``jax.lax.dynamic_update_slice`` clamps its start index: the serving
+engine keeps advancing the position of an idle slot, so the case is
+reached.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def init_dense_cache(n_layers: int, batch: int, max_seq: int, n_kv: int,
+                     head_dim: int, dtype, device) -> dict:
+    """Zeroed caches of a layer stack: {"k", "v"} of (L, B, S_max, H_kv, Dh)."""
+    shape = (n_layers, batch, max_seq, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def dense_cache_insert(cache: dict, k_new, v_new, pos: int) -> dict:
+    """Insert (B, S_new, H, D) at sequence offset ``pos`` (in place)."""
+    s_max, s_new = cache["k"].shape[1], k_new.shape[1]
+    start = min(max(int(pos), 0), s_max - s_new)
+    cache["k"][:, start:start + s_new] = k_new.to(cache["k"].dtype)
+    cache["v"][:, start:start + s_new] = v_new.to(cache["v"].dtype)
+    return cache
+
+
+def dense_cache_positions(cache: dict, length) -> torch.Tensor:
+    """kv positions (S_max,) with slots >= length masked as -1."""
+    s = cache["k"].shape[1]
+    pos = torch.arange(s, dtype=torch.int32, device=cache["k"].device)
+    return torch.where(pos < length, pos, -1)
+
+
+def dense_cache_insert_rows(cache: dict, k_new, v_new, pos_b) -> dict:
+    """Per-slot insert for continuous batching (in place): row b gets its
+    token at its own position pos_b[b], clamped to [0, S_max - 1].
+    k_new/v_new (B, 1, H, D); pos_b (B,) int."""
+    s_max = cache["k"].shape[1]
+    rows = torch.arange(cache["k"].shape[0], device=cache["k"].device)
+    at = pos_b.to(torch.int64).clamp(0, s_max - 1)
+    cache["k"][rows, at] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, at] = v_new[:, 0].to(cache["v"].dtype)
+    return cache
+
+
+def dense_cache_positions_rows(cache: dict, lengths) -> torch.Tensor:
+    """(B, S_max) kv positions with per-row valid lengths."""
+    s = cache["k"].shape[1]
+    pos = torch.arange(s, dtype=torch.int32, device=cache["k"].device)[None]
+    return torch.where(pos < lengths.to(torch.int32)[:, None], pos, -1)

@@ -1,0 +1,77 @@
+"""Core layers in PyTorch: norms, the GLU MLP, embeddings, RoPE (the port of
+the dense-decode subset of ``repro.models.layers``).
+
+Parameters are plain nested dicts of tensors, as the reference's pytrees;
+every function is pure. Norms and RoPE compute in f32 and cast back, and
+the LM head accumulates in f32, as the reference does.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+VOCAB_PAD = 128   # vocab padded to a multiple; pad logits are masked to -1e30
+
+
+def padded_vocab(vocab_size: int) -> int:
+    return ((vocab_size + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+def rms_norm(x: torch.Tensor, weight, eps: float) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x.dtype)
+
+
+def apply_norm(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm_type != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm_type!r} is not ported yet")
+    return rms_norm(x, params["scale"], cfg.norm_eps)
+
+
+_ACTIVATIONS = {"silu": F.silu, "relu": F.relu,
+                "gelu": lambda x: F.gelu(x, approximate="tanh")}
+
+
+def apply_mlp(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    act = _ACTIVATIONS[cfg.act]
+    up = x @ params["up"].to(x.dtype)
+    if cfg.mlp_type == "glu":
+        h = act(x @ params["gate"].to(x.dtype)) * up
+    else:
+        h = act(up)
+    return h @ params["down"].to(x.dtype)
+
+
+def embed_tokens(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return params["tok"][tokens].to(dtype)
+
+
+def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """(..., D) → (..., Vp) f32 logits. Inputs are cast to f32 before the
+    product, so a bf16 model still accumulates its logits in f32."""
+    w = params["tok"] if cfg.tie_embeddings else params["head"].T
+    logits = x.float() @ w.float().T
+    if logits.shape[-1] != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions (...,) int → (cos, sin) of shape (..., head_dim // 2), f32."""
+    half = head_dim // 2
+    idx = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / (theta ** (idx / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x (..., n_heads, head_dim); cos/sin broadcastable (..., 1, head_dim//2)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

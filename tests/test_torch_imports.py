@@ -1,0 +1,63 @@
+"""The port stands alone: every ``repro_torch`` module imports without JAX
+and without the ``repro`` package, and ``chip_smoke.py`` imports neither.
+
+The import check runs in a subprocess because this test process already
+imported JAX (``tests/conftest.py``)."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+sys.modules["jax"] = None                       # any `import jax` fails
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "repro" or name.startswith("repro."):
+            raise ImportError(f"repro_torch must not import {name}")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    roots = set(_imported_roots(ROOT / "chip_smoke.py"))
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_port_sources_name_neither_jax_nor_repro():
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        roots = set(_imported_roots(path))
+        assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
