@@ -9,20 +9,34 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc per
              source, in parallel).
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the serving path's shapes and at edge cases (guard MACs
-             bit-exact, decode attention at 2e-5 in f32 and 2e-2 in bf16).
-3. serve   — llama3.2-1b at full width and depth (bf16, random weights from
-             a seeded generator), max_batch 8, max_seq 1024: 12 concurrent
-             lockstep clients and one batch envelope of 8, every request and
-             response a sealed frame through the service step; a tampered
-             frame must be refused. The kernels' launch counts are zeroed
-             just before and read just after; each must be > 0.
-4. parity  — the same model in f32: the engine with the decode-attention
+             the main paths' shapes and at edge cases (guard MACs bit-exact;
+             decode and flash attention at 2e-5 in f32 and 2e-2 in bf16;
+             the SSD scan at 1e-4 in f32 and 2e-2 in bf16, relative and
+             absolute, with mamba2-1.3b's decays).
+3. prefill — ``runtime.steps.make_prefill_step`` at full width and depth
+             (bf16, random weights from a seeded generator), 4 prompts of
+             2048 tokens, for llama3.2-1b and mamba2-1.3b: ms per prefill,
+             prompt tokens/s, peak memory, finite logits; the launch counts
+             are zeroed just before and read just after (16 flash-attention
+             launches per llama call, 48 SSD-scan launches per mamba2 call).
+4. serve   — llama3.2-1b at full width and depth (bf16), max_batch 8,
+             max_seq 1024: 12 concurrent lockstep clients and one batch
+             envelope of 8; then mamba2-1.3b the same way with 8 clients.
+             Every request and response is a sealed frame through the
+             service step; a tampered frame must be refused. The launch
+             counts are zeroed just before and read just after; each kernel
+             of the path must be > 0.
+5. parity  — in f32 at full width: the llama engine with the decode-attention
              kernel and with its plain version give identical greedy tokens;
-             and the reduced model's engine on the card and on the CPU.
+             the reduced engine on the card equals it on the CPU; and for
+             both families the forward with the kernels equals the forward
+             with the plain versions, and the last prefill logits equal
+             ``decode_step`` run token by token over the same prompt
+             (identical argmax, max abs difference printed).
 
 Then a ``kernels`` JSON line (times from CUDA events, bounds from this
-run's inputs), the ``nvidia-smi`` line, and as the last line
+run's inputs, launches summed over the prefill and serve phases), the
+``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor the ``repro``
 package.
 """
@@ -180,10 +194,110 @@ def phase_kernels():
                             f" max err {e} > {tol}")
             worst = max(worst, e) if dtype == torch.bfloat16 else worst
     err["decode_attention"] = worst
+    err["flash_attention"] = check_flash(gen)
+    err["ssd_scan"] = check_ssd(gen)
     frames_on_card_match_cpu()
     torch.cuda.synchronize()
     emit(phase="kernels", ok=True, max_abs_err=err)
     return err
+
+
+def flash_inputs(gen, B, Sq, Skv, H, Hkv, Dh, dtype, tail=3):
+    """Random q/k/v; queries at the last Sq positions of Skv; the last
+    ``tail`` kv slots unfilled (kv_pos -1)."""
+    q = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, Hkv, Dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, Hkv, Dh), generator=gen, device="cuda").to(dtype)
+    qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device="cuda")[None] \
+        .expand(B, Sq).contiguous()
+    kp = torch.arange(Skv, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    if tail:
+        kp[:, -tail:] = -1
+    return q, k, v, qp, kp
+
+
+def check_flash(gen):
+    """The flash kernel against its plain version: the prefill shape
+    (4, 2048, 32, 8, 64) causal in bf16 and f32, a window, non-causal with
+    Skv != Sq, padded query rows (exactly 0), kv_pos -1 tails, Dh 128 with
+    one kv head, ragged lengths. → the worst bf16 error."""
+    from repro_torch.kernels import flash_attention as fa
+    cases = [  # B, Sq, Skv, H, Hkv, Dh, causal, window, tail, padded q rows
+        (4, 2048, 2048, 32, 8, 64, True, None, 0, 0),
+        (2, 700, 700, 16, 4, 64, True, 128, 3, 0),
+        (2, 300, 1000, 8, 8, 64, False, None, 37, 5),
+        (2, 257, 257, 8, 1, 128, True, None, 3, 2),
+        (3, 1, 333, 4, 2, 128, True, 64, 3, 0),
+    ]
+    worst = 0.0
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        for B, Sq, Skv, H, Hkv, Dh, causal, win, tail, pad in cases:
+            q, k, v, qp, kp = flash_inputs(gen, B, Sq, Skv, H, Hkv, Dh, dtype, tail)
+            if pad:
+                qp[:, -pad:] = -2
+            got = fa.flash_attention_cuda(q, k, v, qp, kp, causal=causal, window=win)
+            want = fa.flash_attention_plain(q, k, v, qp, kp, causal=causal,
+                                            window=win)
+            e = (got.float() - want.float()).abs().max().item()
+            case = (B, Sq, Skv, H, Hkv, Dh, causal, win, tail, pad, str(dtype))
+            check(e <= tol, f"flash_attention {case}: max err {e} > {tol}")
+            check(not pad or got[:, -pad:].abs().max().item() == 0.0,
+                  f"flash_attention {case}: a padded query row is not 0")
+            if dtype == torch.bfloat16:
+                worst = max(worst, e)
+            del q, k, v, got, want
+    return worst
+
+
+def ssd_inputs(gen, B, S, H, P, G, N, dtype):
+    """x, B, C ~ N(0, 1); A_log = log(1..H) and dt = softplus(N(0, 1) +
+    dt_bias) with dt_bias drawn as mamba2's init draws it (dt in [1e-3,
+    1e-1] before the input term), D = 1."""
+    import math
+    import torch.nn.functional as F
+    x = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dtype)
+    u = torch.rand((H,), generator=gen, device="cuda")
+    dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = F.softplus(torch.randn((B, S, H), generator=gen, device="cuda") + dt_bias)
+    A_log = torch.log(torch.arange(1, H + 1, dtype=torch.float32, device="cuda"))
+    Bm = torch.randn((B, S, G, N), generator=gen, device="cuda").to(dtype)
+    Cm = torch.randn((B, S, G, N), generator=gen, device="cuda").to(dtype)
+    return x, dt, A_log, Bm, Cm, torch.ones(H, device="cuda")
+
+
+def check_ssd(gen):
+    """The SSD kernel against its plain version (both finite) at mamba2's
+    prefill shape (4, 2048, 64, 64, G=1, N=128, Q=128), a length that is not
+    a chunk multiple, an init_state, and G > 1; |got - want| <= tol·(1 +
+    |want|) with tol 1e-4 in f32 and 2e-2 in bf16. → the worst bf16
+    absolute error."""
+    from repro_torch.kernels import ssd_scan as ss
+    cases = [  # B, S, H, P, G, N, Q, init
+        (4, 2048, 64, 64, 1, 128, 128, False),
+        (2, 1000, 16, 64, 4, 128, 128, True),
+        (1, 77, 8, 32, 2, 64, 64, False),
+    ]
+    worst = 0.0
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for B, S, H, P, G, N, Q, init in cases:
+            x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, B, S, H, P, G, N, dtype)
+            s0 = (torch.randn((B, H, P, N), generator=gen, device="cuda")
+                  if init else None)
+            y, st = ss.ssd_scan_cuda(x, dt, A_log, Bm, Cm, D, s0, chunk=Q)
+            yw, sw = ss.ssd_scan_plain(x, dt, A_log, Bm, Cm, D, s0, chunk=Q)
+            case = (B, S, H, P, G, N, Q, init, str(dtype))
+            check(bool(torch.isfinite(yw).all()) and bool(torch.isfinite(y).all())
+                  and bool(torch.isfinite(st).all()),
+                  f"ssd_scan {case}: a non-finite output")
+            for got, want in ((y.float(), yw.float()), (st, sw)):
+                excess = ((got - want).abs() - tol * (1 + want.abs())).max().item()
+                check(excess <= 0, f"ssd_scan {case}: error over tolerance "
+                                   f"by {excess}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, (y.float() - yw.float()).abs().max().item())
+            del x, y, yw
+    return worst
 
 
 def frames_on_card_match_cpu():
@@ -226,12 +340,62 @@ def _engine(cfg, dtype, seed, max_batch, max_seq, impl=None):
                          impl=impl or Impl(), dtype=dtype, device="cuda")
 
 
-def phase_serve(cfg):
+GUARD_KERNELS = ("guard_copy", "mac_batch", "mac_init_state", "mac_update",
+                 "mac_finalize")
+
+
+def phase_prefill(cfg, kernel, per_call, n_calls=3, B=4, S=2048):
+    """``make_prefill_step`` at full width and depth in bf16 over B prompts
+    of S tokens; ``kernel`` must launch ``per_call`` times per call."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import Impl, init_params
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.runtime.steps import make_prefill_step
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
+                         dtype=torch.bfloat16)
+    step = make_prefill_step(cfg, Impl(), dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device="cuda")}
+    step(params, batch)                      # warm-up (library loads), not measured
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        logits = step(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.LAUNCHES.snapshot()
+    check(launches[kernel] == per_call * n_calls,
+          f"{cfg.name} prefill: {launches[kernel]} {kernel} launches in "
+          f"{n_calls} calls, want {per_call} per call")
+    check(logits.shape == (B, 1, padded_vocab(cfg.vocab_size))
+          and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+          f"{cfg.name} prefill: logits {tuple(logits.shape)} not finite")
+    ms = wall / n_calls * 1e3
+    emit(phase="prefill", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype="bfloat16", batch=B, prompt_len=S,
+         calls=n_calls, ms_per_prefill=ms, prompt_tokens_per_s=B * S / ms * 1e3,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches, logits_finite=True)
+    del params, batch, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve(cfg, n_clients=12):
+    """The engine behind the service step at full width and depth (bf16):
+    lockstep clients, one batch envelope of 8, a tampered frame. → (the
+    launch counts of that run, the layer-0 KV cache and positions of a
+    dense model or None)."""
     from repro_torch.core import framing, transports
     from repro_torch.kernels import ops
     from repro_torch.runtime import EngineService, encode_prompt
 
-    n_clients, max_new = 12, 32
+    max_new = 32
+    path = GUARD_KERNELS + (("decode_attention",) if cfg.family == "dense" else ())
     eng = _engine(cfg, torch.bfloat16, 0, 8, 1024)
     svc = EngineService(eng, timeout=600).start()
     rng = torch.Generator().manual_seed(SEED)
@@ -301,7 +465,7 @@ def phase_serve(cfg):
     check(all(t is not None and len(t) == max_new and
               all(0 <= x < cfg.vocab_size for x in t) for t in toks),
           "a response is missing, short or out of the vocabulary")
-    check(all(n > 0 for n in launches.values()),
+    check(all(launches[n] > 0 for n in path),
           f"a kernel of the serving path never launched: {launches}")
     same = sum(results[i] == batch[i] for i in range(8))
     lock_tokens = n_clients * max_new
@@ -316,11 +480,14 @@ def phase_serve(cfg):
          batch_ms_per_tick=batch_s / batch_ticks * 1e3,
          batch_matches_lockstep=same, tampered_frame_refused=refused,
          launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    pos = eng.state["pos"].clamp(max=eng.max_seq - 1)
-    caches = eng.state["caches"]
+    attn_inputs = None
+    if cfg.family == "dense":
+        caches = eng.state["caches"]
+        attn_inputs = (caches["k"][0].clone(), caches["v"][0].clone(),
+                       eng.state["pos"].clamp(max=eng.max_seq - 1).clone())
     del eng, svc
     torch.cuda.empty_cache()
-    return launches, (caches["k"][0].clone(), caches["v"][0].clone(), pos.clone())
+    return launches, attn_inputs
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +535,53 @@ def _to(tree, device):
             for k, v in tree.items()}
 
 
+def phase_prefill_parity(cfg, B=2, S=160, S_dec=16):
+    """In f32 at full width: the forward with the kernels against the
+    forward with the plain versions (the same argmax wherever the top two
+    logits are more than 100x the difference apart; near ties are counted),
+    and the last prefill logits against decode_step token by token."""
+    from repro_torch.models import (Impl, decode_step, forward,
+                                    init_decode_state, init_params)
+    from repro_torch.runtime.steps import make_prefill_step
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                         dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    V = cfg.vocab_size
+    lk, _ = forward(cfg, params, {"tokens": toks}, impl=Impl(), dtype=torch.float32)
+    lp, _ = forward(cfg, params, {"tokens": toks}, dtype=torch.float32,
+                    impl=Impl(attention="plain", decode_attention="plain",
+                              ssd="plain"))
+    lk, lp = lk[..., :V], lp[..., :V]
+    kern_err = (lk - lp).abs().max().item()
+    top2 = lp.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 100 * kern_err
+    same = lk.argmax(-1) == lp.argmax(-1)
+    check(bool(torch.isfinite(lk).all()) and bool(same[decided].all()),
+          f"{cfg.name}: kernel and plain forwards disagree (max err {kern_err})")
+    del lk, lp
+
+    short = toks[:, :S_dec]
+    pre = make_prefill_step(cfg, Impl(), dtype=torch.float32)(
+        params, {"tokens": short})[:, 0, :V]
+    st = init_decode_state(cfg, B, S_dec, dtype=torch.float32, device="cuda")
+    for t in range(S_dec):
+        lg, st = decode_step(cfg, params, st, short[:, t:t + 1], impl=Impl(),
+                             dtype=torch.float32)
+    dec = lg[:, 0, :V]
+    dec_err = (pre - dec).abs().max().item()
+    check(torch.equal(pre.argmax(-1), dec.argmax(-1)) and dec_err <= 1e-3,
+          f"{cfg.name}: prefill and decode disagree (max err {dec_err})")
+    emit(phase="parity_prefill", arch=cfg.name, dtype="float32", batch=B,
+         prompt_len=S, kernel_vs_plain_max_abs=kern_err,
+         argmax_identical=bool(same.all()), near_ties=int((~decided).sum()),
+         decode_prompt_len=S_dec, prefill_vs_decode_max_abs=dec_err,
+         prefill_decode_argmax_identical=True)
+    del params, st
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # the kernels line
 # ---------------------------------------------------------------------------
@@ -382,14 +596,8 @@ def kernels_line(cfg, launches, err, attn_inputs):
     tag = SEED & 0xFFFFFFFF
     rows = []
 
-    def row(name, source, replaces, shape, ms, plain_ms, nbytes, ops, kind,
-            library_ms, **extra):
-        b, by = bound(nbytes, ops, kind)
-        rows.append(dict(name=name, route="cuda", source=f"{SRC}/{source}",
-                         replaces=replaces, launches=launches[name],
-                         max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
-                         bound_ms=b, bound_by=by, library_ms=library_ms,
-                         shape=shape, **extra))
+    def row(name, source, replaces, *args, **extra):
+        rows.append(_row(name, source, replaces, launches, err, *args, **extra))
 
     def guard_times(n):
         p = _u32(n, gen)
@@ -467,7 +675,65 @@ def kernels_line(cfg, launches, err, attn_inputs):
         cuda_ms(lambda: da.decode_attention_plain(q, k, v, qp, kp), 50),
         nbytes, 4 * H * Dh * valid, "bf16", lib,
         valid_rows=valid)
+    del q, k, v, attn_inputs
+    torch.cuda.empty_cache()
+    rows.append(flash_row(gen, launches, err))
+    rows.append(ssd_row(gen, launches, err))
     return rows
+
+
+def _row(name, source, replaces, launches, err, shape, ms, plain_ms, nbytes,
+         ops, kind, library_ms, **extra):
+    """One entry of the kernels line; the bound from ``nbytes`` and ``ops``."""
+    b, by = bound(nbytes, ops, kind)
+    return dict(name=name, route="cuda", source=f"{SRC}/{source}",
+                replaces=replaces, launches=launches[name], max_abs_err=err[name],
+                ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=library_ms, shape=shape, **extra)
+
+
+def flash_row(gen, launches, err):
+    """Flash attention at the llama3.2-1b prefill's shape: 4 prompts of
+    2048 tokens, 32 query heads over 8 kv heads of 64, causal, bf16. The
+    operations are 4·Dh·H per valid (q, kv) pair of this run's positions."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, Hkv, Dh = 4, 2048, 32, 8, 64
+    q, k, v, qp, kp = flash_inputs(gen, B, S, S, H, Hkv, Dh, torch.bfloat16, tail=0)
+    pairs = int(((kp[:, None, :] <= qp[:, :, None]) & (kp[:, None, :] >= 0)).sum())
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + (qp.numel() + kp.numel()) * 4
+    qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), 20)
+    return _row("flash_attention", "flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:76", launches, err,
+                f"q ({B}, {S}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
+                f"causal", cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, qp, kp),
+                                   10),
+                cuda_ms(lambda: fa.flash_attention_plain(q, k, v, qp, kp), 2),
+                nbytes, 4 * Dh * H * pairs, "bf16", lib, valid_pairs=pairs)
+
+
+def ssd_row(gen, launches, err):
+    """The SSD scan at the mamba2-1.3b prefill's shape: 4 prompts of 2048
+    tokens, 64 heads of 64, one group of N = 128, chunk 128, bf16. The
+    operations are the chunked form's: per chunk and head, C·Bᵀ and att·x
+    over the Q(Q+1)/2 causal pairs, the inter term and the state carry."""
+    from repro_torch.kernels import ssd_scan as ss
+    B, S, H, P, G, N, Q = 4, 2048, 64, 64, 1, 128, 128
+    x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16)
+    n_chunks = -(-S // Q)
+    ops = 2 * B * H * n_chunks * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P)
+    nbytes = (2 * x.numel() + Bm.numel() + Cm.numel()) * 2 + dt.numel() * 4 \
+        + 2 * H * 4 + B * H * P * N * 4
+    return _row("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:70",
+                launches, err,
+                f"x ({B}, {S}, {H}, {P}) bf16, B/C ({B}, {S}, {G}, {N}), chunk {Q}",
+                cuda_ms(lambda: ss.ssd_scan_cuda(x, dt, A_log, Bm, Cm, D, chunk=Q),
+                        10),
+                cuda_ms(lambda: ss.ssd_scan_plain(x, dt, A_log, Bm, Cm, D,
+                                                  chunk=Q), 2),
+                nbytes, ops, "bf16", None)
 
 
 def main():
@@ -484,12 +750,24 @@ def main():
     t0 = time.perf_counter()
     smi = phase_card()
     err = phase_kernels()
-    cfg = get_config("llama3.2-1b")
-    launches, attn_inputs = phase_serve(cfg)
-    kernels = kernels_line(cfg, launches, err, attn_inputs)
+    llama, mamba = get_config("llama3.2-1b"), get_config("mamba2-1.3b")
+    launches = {}                            # summed over the main-path runs
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    add(phase_prefill(llama, "flash_attention", llama.num_layers))
+    add(phase_prefill(mamba, "ssd_scan", mamba.num_layers))
+    counts, attn_inputs = phase_serve(llama)
+    add(counts)
+    add(phase_serve(mamba, n_clients=8)[0])
+    kernels = kernels_line(llama, launches, err, attn_inputs)
     del attn_inputs
     torch.cuda.empty_cache()
-    phase_parity(cfg)
+    phase_parity(llama)
+    phase_prefill_parity(llama)
+    phase_prefill_parity(mamba)
     emit(phase="done", wall_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,0 +1,127 @@
+"""Full-sequence (prefill) attention: CUDA kernel and its plain version.
+
+The port of ``repro.kernels.flash_attention``. q (B, Sq, H, Dh) attends over
+k, v (B, Skv, Hkv, Dh) in f32 or bf16, GQA by ``h // (H // Hkv)``; q_pos
+(B, Sq), kv_pos (B, Skv) int32. A pair is attended when ``kv_pos >= 0``,
+``kv_pos <= q_pos`` (causal) and, with a window, ``q_pos - kv_pos <
+window``; positions may be out of order. The softmax runs online over kv
+chunks in f32 with scale Dh^-0.5, a row with ``q_pos < 0`` gives exactly 0,
+and the output has q's dtype.
+
+:func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` (one block
+per q tile of 64 rows, head and batch row, walking kv tiles with the
+softmax state in registers; fully masked tiles skipped). Its ragged ends
+are masked in the kernel, so no shape is padded. :func:`flash_attention_plain`
+is the forward of ``flash_jnp.flash_attention_jnp``, chunked over q rows as
+well so that a long prefill never holds the (Sq, Skv) score matrix.
+``kernels.ops`` picks one by the tensor's device and counts the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import NEG_INF
+
+HEAD_DIMS = (64, 128)        # the head dims the kernel is built for
+CHUNK = 128                  # q and kv rows per step of the plain version
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
+_SIGNATURES = {"flash_attention_f32": _SIG, "flash_attention_bf16": _SIG}
+_ENTRY = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}
+
+
+def _valid(qp, kp, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """qp (B, q), kp (B, k) → (B, 1, 1, q, k) bool."""
+    qp = qp[:, None, None, :, None]
+    kp = kp[:, None, None, None, :]
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & ((qp - kp) < window)
+    return ok
+
+
+def flash_attention_plain(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """The same function in plain PyTorch: online softmax over kv chunks of
+    ``CHUNK`` rows for each q chunk of ``CHUNK`` rows, in f32."""
+    B, Sq, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = Dh ** -0.5
+    qc = kc = CHUNK
+    qp_all, kp_all = q_pos.to(torch.int32), kv_pos.to(torch.int32)
+    kf, vf = k.float(), v.float()
+    neg = torch.tensor(NEG_INF, device=q.device)
+    zero = torch.zeros((), device=q.device)
+    out = torch.empty_like(q)
+    for q0 in range(0, Sq, qc):
+        qb = q[:, q0:q0 + qc].float()
+        n = qb.shape[1]
+        qb = qb.reshape(B, n, Hkv, g, Dh)
+        qp = qp_all[:, q0:q0 + n]
+        m = torch.full((B, Hkv, g, n), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, g, n), device=q.device)
+        acc = torch.zeros((B, Hkv, g, n, Dh), device=q.device)
+        for k0 in range(0, Skv, kc):
+            ok = _valid(qp, kp_all[:, k0:k0 + kc], causal, window)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf[:, k0:k0 + kc]) * scale
+            s = torch.where(ok, s, neg)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.where(ok, torch.exp(s - m_new[..., None]), zero)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vf[:, k0:k0 + kc])
+            m = m_new
+        ob = acc / torch.clamp(l, min=1e-30)[..., None]
+        ob = torch.where((qp < 0)[:, None, None, :, None], zero, ob)
+        out[:, q0:q0 + n] = ob.permute(0, 3, 1, 2, 4).reshape(B, n, H, Dh) \
+            .to(q.dtype)
+    return out
+
+
+def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Launch the CUDA kernel; raises for inputs it does not take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: CUDA tensors required, got {q.device}")
+    B, Sq, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if Sq < 1 or Skv < 1 or k.shape != (B, Skv, Hkv, Dh) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: f32 or bf16 q/k/v of one dtype, "
+                         f"got {q.dtype} {k.dtype} {v.dtype}")
+    if Hkv < 1 or H % Hkv or Dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: unsupported H={H} Hkv={Hkv} Dh={Dh} "
+                         f"(H a multiple of Hkv, Dh in {HEAD_DIMS})")
+    for t in (q, k, v):
+        if not t.is_contiguous() or t.device != q.device:
+            raise ValueError("flash_attention: contiguous q/k/v on one device")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window must be positive, got {window}")
+    qp = q_pos.to(torch.int32).contiguous()
+    kp = kv_pos.to(torch.int32).contiguous()
+    if (qp.shape != (B, Sq) or kp.shape != (B, Skv) or qp.device != q.device
+            or kp.device != q.device):
+        raise ValueError("flash_attention: q_pos (B, Sq) and kv_pos (B, Skv) "
+                         "on q's device")
+    out = torch.empty_like(q)
+    fn = getattr(_build.load("flash_attention", _SIGNATURES), _ENTRY[q.dtype])
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
+                kp.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, Dh,
+                int(causal), 0 if window is None else int(window), Dh ** -0.5,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, _ENTRY[q.dtype])
+    return out

@@ -15,10 +15,12 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mpk_guard as _mg
+from repro_torch.kernels import ssd_scan as _ss
 
 KERNELS = ("guard_copy", "mac_batch", "mac_init_state", "mac_update",
-           "mac_finalize", "decode_attention")
+           "mac_finalize", "decode_attention", "flash_attention", "ssd_scan")
 
 
 class LaunchCounts:
@@ -110,4 +112,28 @@ def decode_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     out = _da.decode_attention_cuda(q, k, v, q_pos, kv_pos, causal=causal,
                                     window=window)
     LAUNCHES.bump("decode_attention")
+    return out
+
+
+def attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+              window: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence attention, q (B, Sq, H, Dh) over k/v (B, Skv, Hkv, Dh),
+    any Sq and Skv (the kernel masks its ragged tiles; nothing is padded)."""
+    if not _on_cuda(q):
+        return _fa.flash_attention_plain(q, k, v, q_pos, kv_pos, causal=causal,
+                                         window=window)
+    out = _fa.flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=causal,
+                                   window=window)
+    LAUNCHES.bump("flash_attention")
+    return out
+
+
+def ssd(x, dt, A_log, B, C, D, init_state=None, *, chunk: int = 128):
+    """The Mamba2 SSD scan over a whole sequence → (y, final state f32).
+    A sequence that is not a chunk multiple ends in identity steps (dt = 0):
+    the plain version pads them, the kernel masks them."""
+    if not _on_cuda(x):
+        return _ss.ssd_scan_plain(x, dt, A_log, B, C, D, init_state, chunk=chunk)
+    out = _ss.ssd_scan_cuda(x, dt, A_log, B, C, D, init_state, chunk=chunk)
+    LAUNCHES.bump("ssd_scan")
     return out

@@ -1,10 +1,9 @@
 """Plain PyTorch oracles for the ported kernels. Slow, obvious, and correct.
 
-The torch counterpart of ``repro.kernels.ref`` for the kernels of the
-serving path: decode attention and the guard MAC. The hand-written CUDA
-kernels must match these bit for bit (MACs) or within the stated
-tolerance (attention), and the CPU tests hold these against the JAX
-reference.
+The torch counterpart of ``repro.kernels.ref``: attention, the SSD
+recurrence and the guard MAC. The hand-written CUDA kernels must match
+these bit for bit (MACs) or within the stated tolerance (attention, SSD),
+and the CPU tests hold these against the JAX reference.
 
 Conventions (as in the reference)
 ---------------------------------
@@ -13,6 +12,9 @@ positions: q_pos (B, Sq), kv_pos (B, Skv) int32; kv_pos == -1 marks an
 invalid slot (unfilled cache / padding), q_pos < 0 marks a padded query row
 (output forced to 0). ``causal`` masks kv_pos > q_pos; ``window`` (if set)
 masks q_pos - kv_pos >= window (SWA).
+
+ssd: x (B, S, H, P); dt (B, S, H); A_log, D (H,); B, C (B, S, G, N) shared
+by the H // G heads of a group; state (B, H, P, N) f32.
 
 guard MAC: payload (n, 128) uint32; 128-lane Horner hash seeded with
 h0 = INIT + tag (``h = h·P + row``), folded to one word by Σ h_i·P^(127-i).
@@ -141,3 +143,26 @@ def attention_ref(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     out = torch.where(q_pos[:, :, None, None] < 0,
                       torch.zeros((), device=q.device), out)
     return out.to(q.dtype)
+
+
+def ssd_ref(x, dt, A_log, B, C, D, init_state=None):
+    """The Mamba2 SSD as the sequential recurrence, one step at a time in
+    f32: S_t = exp(dt_t·A)·S_{t-1} + dt_t·x_t ⊗ B_t, y_t = S_t·C_t + D·x_t
+    with A = -exp(A_log). → (y in x's dtype, final state (B,H,P,N) f32)."""
+    Bb, S, H, P = x.shape
+    rep = H // B.shape[2]
+    xf = x.float()
+    dtf = dt.float()
+    Bf = B.float().repeat_interleave(rep, dim=2)          # (B, S, H, N)
+    Cf = C.float().repeat_interleave(rep, dim=2)
+    A = -torch.exp(A_log.float())
+    a = torch.exp(dtf * A[None, None, :])                 # (B, S, H) in (0, 1]
+    state = (torch.zeros((Bb, H, P, B.shape[3]), device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        state = a[:, t, :, None, None] * state + torch.einsum(
+            "bhp,bhn->bhpn", dtf[:, t, :, None] * xf[:, t], Bf[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + D.float()[None, None, :, None] * xf
+    return y.to(x.dtype), state

@@ -1,0 +1,168 @@
+"""The Mamba2 SSD scan: CUDA kernel, its plain version, and the decode step.
+
+The port of ``repro.kernels.ssd_scan`` and ``repro.kernels.ssd_jnp``. Inputs
+as ``ref.ssd_ref``: x (B, S, H, P) in f32 or bf16, dt (B, S, H) f32, A_log
+and D (H,) f32, B and C (B, S, G, N) shared by the H // G heads of a group,
+init_state (B, H, P, N) f32 or None. Returns y in x's dtype and the final
+state (B, H, P, N) in f32.
+
+:func:`ssd_scan_cuda` launches ``csrc/ssd_scan.cu`` (one block per (b, h)
+walking its chunks in order with the state in shared memory; a ragged last
+chunk is masked in the kernel). :func:`ssd_scan_plain` is
+``ssd_jnp.ssd_chunked`` with two changes:
+
+- the intra-chunk exponent is masked before ``exp``
+  (``exp(where(i >= j, cum_i - cum_j, -inf))``), so every factor is at
+  most 1. The reference takes exp over the whole Q×Q square and multiplies
+  by ``tril`` afterwards, which overflows to ``inf·0 = NaN`` once a chunk's
+  summed decay passes ~88 (mamba2-1.3b's own init reaches it);
+- the in-chunk prefix sum ``cum`` of dt·A is taken in f64 and its
+  differences are rounded to f32 before ``exp``. With mamba2's decays cum
+  reaches −1000s inside one chunk, where an f32 prefix sum keeps only
+  ~1e-4 of absolute precision, and every decay factor inherits that as a
+  relative error. The kernel does the same.
+:func:`ssd_decode_step` is the one-token recurrence, plain PyTorch as in the
+reference. ``kernels.ops`` picks the scan by the tensor's device and counts
+the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+MAX_P, MAX_N, MAX_CHUNK = 64, 128, 128   # each a multiple of 32 in the kernel
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+_SIGNATURES = {"ssd_scan_f32": _SIG, "ssd_scan_bf16": _SIG}
+_ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad axis 1 of ``t`` by ``pad`` steps (dt = 0: identity steps)."""
+    if pad == 0:
+        return t
+    widths = [0, 0] * (t.ndim - 2) + [0, pad]
+    return F.pad(t, widths)
+
+
+def ssd_scan_plain(x, dt, A_log, B, C, D, init_state=None, *,
+                   chunk: int = 128):
+    """The chunked SSD in plain PyTorch, with the masked exponent."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    R = H // G
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    xf = _pad_seq(x.float(), pad)
+    dtf = _pad_seq(dt.float(), pad)
+    Bf = _pad_seq(B.float(), pad)
+    Cf = _pad_seq(C.float(), pad)
+    nc = xf.shape[1] // Q
+
+    xb = xf.reshape(Bb, nc, Q, G, R, P)
+    dtb = dtf.reshape(Bb, nc, Q, G, R)
+    Bc = Bf.reshape(Bb, nc, Q, G, N)
+    Cc = Cf.reshape(Bb, nc, Q, G, N)
+    A = -torch.exp(A_log.float()).reshape(G, R)
+
+    cum = torch.cumsum((dtb * A).double(), dim=2)        # (B,nc,Q,G,R) ≤ 0
+    seg = cum[:, :, -1:]
+    # intra-chunk: M_ij = exp(L_i − L_j) for i ≥ j, 0 above the diagonal
+    diff = (cum[:, :, :, None] - cum[:, :, None]).float()   # (B,nc,Q,Q,G,R)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    dec = torch.exp(torch.where(tri[None, None, :, :, None, None], diff,
+                                torch.tensor(float("-inf"), device=x.device)))
+    cb = torch.einsum("bcqgn,bcjgn->bcqjg", Cc, Bc)
+    att = cb[..., None] * dec * dtb[:, :, None]
+    y_intra = torch.einsum("bcqjgr,bcjgrp->bcqgrp", att, xb)
+
+    # chunk state contribution: Σ_j exp(L_Q − L_j)·dt_j·(x_j ⊗ B_j)
+    w = torch.exp((seg - cum).float()) * dtb
+    s_c = torch.einsum("bcjgrp,bcjgn->bcgrpn", w[..., None] * xb, Bc)
+
+    state = (torch.zeros((Bb, G, R, P, N), device=x.device) if init_state is None
+             else init_state.float().reshape(Bb, G, R, P, N))
+    decay = torch.exp(seg[:, :, 0].float())              # (B,nc,G,R)
+    states_in = []
+    for c in range(nc):                                  # state entering chunk c
+        states_in.append(state)
+        state = decay[:, c, :, :, None, None] * state + s_c[:, c]
+    states_in = torch.stack(states_in, dim=1)
+
+    # inter-chunk: exp(L_i) · C_i · S_{c−1}
+    y_inter = torch.einsum("bcqgn,bcgrpn,bcqgr->bcqgrp", Cc, states_in,
+                           torch.exp(cum.float()))
+    y = (y_intra + y_inter).reshape(Bb, nc * Q, H, P)[:, :S]
+    y = y + D.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), state.reshape(Bb, H, P, N)
+
+
+def ssd_decode_step(x_t, dt_t, A_log, B_t, C_t, D, state):
+    """Single-token recurrent step. x_t (B,H,P); dt_t (B,H); B_t/C_t (B,G,N);
+    state (B,H,P,N) f32 → (y_t (B,H,P) in x_t's dtype, new_state)."""
+    R = x_t.shape[1] // B_t.shape[1]
+    xf = x_t.float()
+    dtf = dt_t.float()
+    A = -torch.exp(A_log.float())
+    a = torch.exp(dtf * A[None])                                    # (B,H)
+    Bh = B_t.float().repeat_interleave(R, dim=1)                    # (B,H,N)
+    Ch = C_t.float().repeat_interleave(R, dim=1)
+    state = a[:, :, None, None] * state + torch.einsum(
+        "bhp,bhn->bhpn", dtf[..., None] * xf, Bh)
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch) \
+        + D.float()[None, :, None] * xf
+    return y.to(x_t.dtype), state
+
+
+def ssd_scan_cuda(x, dt, A_log, B, C, D, init_state: Optional[torch.Tensor] = None,
+                  *, chunk: int = 128):
+    """Launch the CUDA kernel; raises for inputs it does not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: CUDA tensors required, got {x.device}")
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if (S < 1 or G < 1 or H % G or dt.shape != (Bb, S, H)
+            or B.shape != (Bb, S, G, N) or C.shape != B.shape
+            or A_log.shape != (H,) or D.shape != (H,)):
+        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)} dt "
+                         f"{tuple(dt.shape)} B {tuple(B.shape)} C "
+                         f"{tuple(C.shape)} A_log {tuple(A_log.shape)} "
+                         f"D {tuple(D.shape)}")
+    if x.dtype not in _ENTRY or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"ssd_scan: f32 or bf16 x/B/C of one dtype, got "
+                         f"{x.dtype} {B.dtype} {C.dtype}")
+    for name, t in (("dt", dt), ("A_log", A_log), ("D", D)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"ssd_scan: {name} must be float32, got {t.dtype}")
+    if P % 32 or P > MAX_P or N % 32 or N > MAX_N or chunk % 32 \
+            or not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"ssd_scan: unsupported P={P} N={N} chunk={chunk} "
+                         f"(multiples of 32, P <= {MAX_P}, N <= {MAX_N}, "
+                         f"chunk <= {MAX_CHUNK})")
+    inputs = [x, dt, A_log, B, C, D]
+    if init_state is not None:
+        if init_state.shape != (Bb, H, P, N) or init_state.dtype != torch.float32:
+            raise ValueError(f"ssd_scan: init_state must be ({Bb}, {H}, {P}, "
+                             f"{N}) float32")
+        inputs.append(init_state)
+    for t in inputs:
+        if not t.is_contiguous() or t.device != x.device:
+            raise ValueError("ssd_scan: contiguous inputs on one device")
+    y = torch.empty_like(x)
+    final = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    fn = getattr(_build.load("ssd_scan", _SIGNATURES), _ENTRY[x.dtype])
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
+                C.data_ptr(), D.data_ptr(),
+                None if init_state is None else init_state.data_ptr(),
+                y.data_ptr(), final.data_ptr(), Bb, S, H, G, P, N, chunk,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, _ENTRY[x.dtype])
+    return y, final

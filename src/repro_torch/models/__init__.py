@@ -1,4 +1,5 @@
-from repro_torch.models.model import decode_step, init_decode_state, init_params
+from repro_torch.models.model import (decode_step, forward, init_decode_state,
+                                      init_params)
 from repro_torch.models.transformer import Impl
 
-__all__ = ["decode_step", "init_decode_state", "init_params", "Impl"]
+__all__ = ["decode_step", "forward", "init_decode_state", "init_params", "Impl"]

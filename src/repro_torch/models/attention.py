@@ -1,11 +1,12 @@
-"""GQA attention layer for decode: projections, RoPE, the dense-cache
-insert-then-attend protocol (the port of the decode subset of
-``repro.models.attention``; ring-cache and cross-attention paths are not
-ported yet).
+"""GQA attention layer: projections, RoPE, full-sequence self-attention
+and the dense-cache insert-then-attend protocol of decode (the port of that
+subset of ``repro.models.attention``; ``prefill_attn``, ring caches and
+cross-attention are not ported yet).
 
-The attention itself is ``kernels.ops.decode_attention`` (the CUDA kernel
-for CUDA tensors, its plain version on the CPU) or, with
-``impl="plain"``, the plain version on any device.
+The attention itself is ``kernels.ops.attention`` (full sequence) or
+``kernels.ops.decode_attention`` (one token): the CUDA kernel for CUDA
+tensors, its plain version on the CPU; or, with ``impl="plain"``, the
+plain version on any device.
 """
 from __future__ import annotations
 
@@ -14,9 +15,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_attention import decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import kvcache
 from repro_torch.models.layers import apply_rope, rms_norm, rope_angles
 
+_ATTN_IMPLS = {"kernel": kops.attention, "plain": flash_attention_plain}
 _DECODE_IMPLS = {"kernel": kops.decode_attention, "plain": decode_attention_plain}
 
 
@@ -45,6 +48,18 @@ def _rope_qk(cfg: ModelConfig, q, k, q_pos, kv_pos):
 def _out_proj(p, o: torch.Tensor) -> torch.Tensor:
     B, S, H, Dh = o.shape
     return o.reshape(B, S, H * Dh) @ p["wo"].to(o.dtype).reshape(H * Dh, -1)
+
+
+def apply_attn(cfg: ModelConfig, p, x: torch.Tensor, *, positions,
+               impl: str = "kernel") -> torch.Tensor:
+    """Full-sequence causal self-attention with RoPE (prefill). x (B,S,D),
+    positions (B,S)."""
+    q, k, v = _project_qkv(cfg, p, x)
+    q, k = _rope_qk(cfg, q, k, positions, positions)
+    o = _ATTN_IMPLS[impl](q.contiguous(), k.contiguous(), v.contiguous(),
+                          positions, positions, causal=True,
+                          window=cfg.swa_window)
+    return _out_proj(p, o)
 
 
 def decode_attn(cfg: ModelConfig, p, x_new: torch.Tensor, cache: dict, pos, *,

@@ -1,9 +1,10 @@
-"""Dense KV caches for serving (the port of the dense subset of
-``repro.models.kvcache``).
+"""Decode state for serving: dense KV caches and the SSM recurrent state
+(the port of that subset of ``repro.models.kvcache``).
 
-A layer's cache is ``{"k", "v"}`` of (B, S_max, H_kv, Dh); a stack's caches
-carry a leading L axis. Inserts write IN PLACE into the given tensors (the
-reference returns new arrays) and return the same dict.
+A layer's cache is ``{"k", "v"}`` of (B, S_max, H_kv, Dh), or for the SSM
+family ``{"ssd", "conv"}``; a stack's caches carry a leading L axis.
+Inserts write IN PLACE into the given tensors (the reference returns new
+arrays) and return the same dict.
 
 An insert position past the end is clamped to the last slot, as
 ``jax.lax.dynamic_update_slice`` clamps its start index: the serving
@@ -21,6 +22,17 @@ def init_dense_cache(n_layers: int, batch: int, max_seq: int, n_kv: int,
     shape = (n_layers, batch, max_seq, n_kv, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_ssm_state(n_layers: int, batch: int, n_heads: int, head_dim: int,
+                   d_state: int, conv_width: int, conv_channels: int, dtype,
+                   device) -> dict:
+    """Zeroed Mamba2 states of a layer stack: {"ssd" (L, B, H, P, N) f32,
+    "conv" (L, B, cw-1, C) in ``dtype``}."""
+    return {"ssd": torch.zeros((n_layers, batch, n_heads, head_dim, d_state),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((n_layers, batch, conv_width - 1, conv_channels),
+                                dtype=dtype, device=device)}
 
 
 def dense_cache_insert(cache: dict, k_new, v_new, pos: int) -> dict:

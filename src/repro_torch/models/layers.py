@@ -1,5 +1,5 @@
 """Core layers in PyTorch: norms, the GLU MLP, embeddings, RoPE (the port of
-the dense-decode subset of ``repro.models.layers``).
+the dense and SSM subset of ``repro.models.layers``).
 
 Parameters are plain nested dicts of tensors, as the reference's pytrees;
 every function is pure. Norms and RoPE compute in f32 and cast back, and
@@ -17,6 +17,14 @@ VOCAB_PAD = 128   # vocab padded to a multiple; pad logits are masked to -1e30
 
 def padded_vocab(vocab_size: int) -> int:
     return ((vocab_size + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+def dense_init(gen: torch.Generator, shape, fan_in: int, dtype) -> torch.Tensor:
+    """Truncated-normal (±2σ) fan-in init, drawn in f32 on the generator's
+    device (the reference's ``layers.dense_init``)."""
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(1.0 / max(1, fan_in) ** 0.5).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, weight, eps: float) -> torch.Tensor:
@@ -52,10 +60,19 @@ def embed_tokens(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    """(..., D) → (..., Vp) f32 logits. Inputs are cast to f32 before the
-    product, so a bf16 model still accumulates its logits in f32."""
-    w = params["tok"] if cfg.tie_embeddings else params["head"].T
-    logits = x.float() @ w.float().T
+    """(..., D) → (..., Vp) f32 logits. The head is first rounded to x's
+    dtype, as the reference rounds it, and the product accumulates and
+    returns f32: on the card one bf16 product with an f32 output, with no
+    f32 copy of the head."""
+    w = params["tok"] if cfg.tie_embeddings else params["head"].T   # (Vp, D)
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        logits = x @ w.T
+    elif x.device.type == "cuda":
+        logits = torch.mm(x.reshape(-1, x.shape[-1]), w.T,
+                          out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+    else:
+        logits = x.float() @ w.float().T
     if logits.shape[-1] != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits

@@ -1,8 +1,8 @@
-"""Top-level model API for serving: init / decode state / decode step (the
-port of the dense-decode subset of ``repro.models.model``).
+"""Top-level model API: init / forward / decode state / decode step for the
+dense and SSM families (the port of that subset of ``repro.models.model``).
 
 The parameter tree is the reference's: ``{"embed": {"tok" (Vp, D)[,
-"head"]}, "final_norm": {"scale"}, "blocks": <stacked dense blocks>}``, so
+"head"]}, "final_norm": {"scale"}, "blocks": <stacked blocks>}``, so
 ``convert.params_from_numpy`` can carry the JAX package's parameters over.
 """
 from __future__ import annotations
@@ -13,8 +13,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.models import kvcache
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import (apply_norm, embed_tokens, lm_logits,
-                                       padded_vocab)
+from repro_torch.models.layers import (apply_norm, dense_init, embed_tokens,
+                                       lm_logits, padded_vocab)
 from repro_torch.models.transformer import Impl
 
 
@@ -22,33 +22,64 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
                 dtype=torch.float32) -> dict:
     """Random parameters drawn from ``gen`` on its device, with the
     reference's distributions (``model.init_params``): embeddings
-    N(0, 0.02²), dense weights truncated-normal fan-in, norm scales 1."""
-    tf._check_dense(cfg)
+    N(0, 0.02²), dense weights truncated-normal fan-in, norm scales 1, and
+    the Mamba2 init of ``ssm.init_mamba_stack``."""
+    tf.check_ported(cfg)
     vp, D = padded_vocab(cfg.vocab_size), cfg.d_model
     tok = torch.empty((vp, D), dtype=torch.float32, device=gen.device)
     embed = {"tok": torch.nn.init.normal_(tok, 0.0, 0.02, generator=gen).to(dtype)}
     if not cfg.tie_embeddings:
-        embed["head"] = tf.dense_init(gen, (D, vp), D, dtype)
+        embed["head"] = dense_init(gen, (D, vp), D, dtype)
     return {"embed": embed,
             "final_norm": {"scale": torch.ones(D, dtype=dtype, device=gen.device)},
             "blocks": tf.init_stack(cfg, gen, cfg.num_layers, dtype)}
 
 
+def forward(cfg: ModelConfig, params, batch, *, impl: Impl = Impl(),
+            dtype=torch.bfloat16, last_only: bool = False):
+    """``batch["tokens"]`` (B, S) int → (logits (B, S, Vp) f32, aux dict),
+    as the reference returns them; aux is empty for the ported families
+    (it holds MoE losses). ``last_only`` computes logits for the final
+    position only (serving prefill: the next-token head is all a prefill
+    needs, and it keeps the (B, S, V) tensor out of memory). Text input
+    only."""
+    tf.check_ported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, S)
+    x = embed_tokens(params["embed"], tokens, dtype)
+    x = tf.apply_stack(cfg, params["blocks"], x, positions=positions, impl=impl)
+    if last_only:
+        x = x[:, -1:]
+    x = apply_norm(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params["embed"], x), {}
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                       dtype=torch.bfloat16, device="cuda") -> dict:
-    """``{"caches": {"k", "v"} of (L, B, S, Hkv, Dh), "pos": 0}``."""
-    tf._check_dense(cfg)
-    caches = kvcache.init_dense_cache(cfg.num_layers, batch, max_seq,
-                                      cfg.kv_heads_eff, cfg.head_dim, dtype,
-                                      resolve(device))
+    """``{"caches": ..., "pos": 0}``: dense KV caches {"k", "v"} of
+    (L, B, S, Hkv, Dh), or for the SSM family the recurrent state
+    {"ssd" (L, B, H, P, N) f32, "conv" (L, B, cw-1, C)}."""
+    tf.check_ported(cfg)
+    dev = resolve(device)
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        caches = kvcache.init_ssm_state(
+            cfg.num_layers, batch, cfg.ssm_heads, s.head_dim, s.d_state,
+            s.conv_width, cfg.d_inner + 2 * s.n_groups * s.d_state, dtype, dev)
+    else:
+        caches = kvcache.init_dense_cache(cfg.num_layers, batch, max_seq,
+                                          cfg.kv_heads_eff, cfg.head_dim, dtype,
+                                          dev)
     return {"caches": caches, "pos": 0}
 
 
 def decode_step(cfg: ModelConfig, params, state, token: torch.Tensor, *,
                 impl: Impl = Impl(), dtype=torch.bfloat16):
     """token (B,1) int at position state["pos"] (an int, or a (B,) tensor
-    of per-slot positions) → (logits (B,1,Vp) f32, state). The KV caches
-    in ``state`` are updated in place; the returned state holds pos + 1."""
+    of per-slot positions) → (logits (B,1,Vp) f32, state). The caches in
+    ``state`` are updated in place; the returned state holds pos + 1."""
     pos = state["pos"]
     x = embed_tokens(params["embed"], token, dtype)
     x, caches = tf.decode_stack(cfg, params["blocks"], state["caches"], x, pos,

@@ -1,9 +1,14 @@
-"""Dense decoder blocks and the decode stack (the port of the dense-decode
+"""Blocks and layer stacks for the dense and SSM families (the port of that
 subset of ``repro.models.transformer``).
 
+  dense : [attn → ffn] × L
+  ssm   : [mamba2] × L
+
 Layer parameters are stacked on a leading L axis, as the reference's
-``init_stack`` produces them; :func:`decode_stack` walks the stack with a
-Python loop and updates the stacked KV caches in place.
+``init_stack`` produces them. The stacks walk the L axis with a Python loop
+(the reference's ``lax.scan``); ``remat`` has no meaning without a backward
+and is not ported. :func:`decode_stack` updates the stacked decode state in
+place.
 """
 from __future__ import annotations
 
@@ -13,50 +18,55 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import apply_mlp, apply_norm
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import apply_mlp, apply_norm, dense_init
+
+_IMPLS = ("kernel", "plain")
 
 
 @dataclass(frozen=True)
 class Impl:
-    """Kernel selection. ``decode_attention="kernel"`` routes through
-    ``kernels.ops`` (the CUDA kernel for CUDA tensors, the plain version on
-    the CPU); ``"plain"`` runs the plain PyTorch version on any device."""
+    """Kernel selection for each kernel of the path. ``"kernel"`` routes
+    through ``kernels.ops`` (the CUDA kernel for CUDA tensors, the plain
+    version on the CPU); ``"plain"`` runs the plain PyTorch version on any
+    device. ``attention`` is the full-sequence (prefill) attention,
+    ``decode_attention`` the single-token one, ``ssd`` the Mamba2 scan."""
+    attention: str = "kernel"
     decode_attention: str = "kernel"
+    ssd: str = "kernel"
 
     def __post_init__(self):
-        if self.decode_attention not in ("kernel", "plain"):
-            raise ValueError(f"unknown decode_attention impl "
-                             f"{self.decode_attention!r}")
+        for name in ("attention", "decode_attention", "ssd"):
+            if getattr(self, name) not in _IMPLS:
+                raise ValueError(f"unknown {name} impl {getattr(self, name)!r}")
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe or cfg.enc_dec or cfg.swa_window:
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for a configuration whose family the port does not run yet."""
+    if (cfg.family not in ("dense", "ssm") or cfg.moe or cfg.enc_dec
+            or cfg.swa_window or cfg.vision_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: only dense full-attention models are ported yet")
-
-
-def dense_init(gen: torch.Generator, shape, fan_in: int, dtype) -> torch.Tensor:
-    """Truncated-normal (±2σ) fan-in init, drawn in f32 on the generator's
-    device (the reference's ``layers.dense_init``)."""
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t.mul_(1.0 / max(1, fan_in) ** 0.5).to(dtype)
+            f"{cfg.name}: only dense full-attention and SSM models are "
+            f"ported yet")
 
 
 def init_stack(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
                dtype=torch.float32) -> dict:
-    """``n_layers`` dense blocks stacked on a leading L axis: the tree of
-    the reference's ``init_stack`` (ln1, attn {wq, wk, wv, wo}, ln2,
-    ffn {up, down, gate})."""
-    _check_dense(cfg)
-    if cfg.q_heads_eff != cfg.num_heads or cfg.kv_heads_eff != cfg.num_kv_heads:
-        raise NotImplementedError("head padding is not ported yet")
-    L, D, H, Hkv, Dh, F = (n_layers, cfg.d_model, cfg.num_heads,
-                           cfg.num_kv_heads, cfg.head_dim, cfg.d_ff)
+    """``n_layers`` blocks stacked on a leading L axis: the tree of the
+    reference's ``init_stack`` (dense: ln1, attn {wq, wk, wv, wo}, ln2,
+    ffn {up, down, gate}; ssm: ln1, mamba)."""
+    check_ported(cfg)
+    L, D = n_layers, cfg.d_model
 
     def ones():
         return torch.ones((L, D), dtype=dtype, device=gen.device)
 
+    if cfg.family == "ssm":
+        return {"ln1": {"scale": ones()},
+                "mamba": ssm_mod.init_mamba_stack(cfg, gen, L, dtype)}
+    if cfg.q_heads_eff != cfg.num_heads or cfg.kv_heads_eff != cfg.num_kv_heads:
+        raise NotImplementedError("head padding is not ported yet")
+    H, Hkv, Dh, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     attn = {"wq": dense_init(gen, (L, D, H, Dh), D, dtype),
             "wk": dense_init(gen, (L, D, Hkv, Dh), D, dtype),
             "wv": dense_init(gen, (L, D, Hkv, Dh), D, dtype),
@@ -78,10 +88,48 @@ def layer(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
+def num_layers(stacked: dict) -> int:
+    return stacked["ln1"]["scale"].shape[0]
+
+
+# ---------------------------------------------------------------------------
+# full-sequence stacks (prefill)
+# ---------------------------------------------------------------------------
+
+def apply_block(cfg: ModelConfig, p, x, *, positions, impl: Impl):
+    """Full-sequence block (causal, RoPE)."""
+    if cfg.family == "ssm":
+        return x + ssm_mod.apply_mamba(cfg, p["mamba"],
+                                       apply_norm(cfg, p["ln1"], x),
+                                       impl=impl.ssd)
+    h = attn_mod.apply_attn(cfg, p["attn"], apply_norm(cfg, p["ln1"], x),
+                            positions=positions, impl=impl.attention)
+    x = x + h
+    return x + apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+
+
+def apply_stack(cfg: ModelConfig, stacked, x, *, positions, impl: Impl):
+    """Walk the layer stack over a whole sequence."""
+    for i in range(num_layers(stacked)):
+        x = apply_block(cfg, layer(stacked, i), x, positions=positions,
+                        impl=impl)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# decode (one new token through the cached stack)
+# ---------------------------------------------------------------------------
+
 def decode_block(cfg: ModelConfig, p, x, cache, pos, *, impl: Impl,
                  use_rope: bool = True):
-    """One dense block for one new token; updates ``cache`` in place.
-    Returns (x, cache)."""
+    """One block for one new token; updates ``cache`` (one layer's views of
+    the stacked decode state) in place. Returns (x, cache)."""
+    if cfg.family == "ssm":
+        h, new = ssm_mod.decode_mamba(cfg, p["mamba"],
+                                      apply_norm(cfg, p["ln1"], x), cache)
+        cache["conv"].copy_(new["conv"])
+        cache["ssd"].copy_(new["ssd"])
+        return x + h, cache
     h, cache = attn_mod.decode_attn(cfg, p["attn"], apply_norm(cfg, p["ln1"], x),
                                     cache, pos, use_rope=use_rope,
                                     impl=impl.decode_attention)
@@ -92,10 +140,11 @@ def decode_block(cfg: ModelConfig, p, x, cache, pos, *, impl: Impl,
 
 def decode_stack(cfg: ModelConfig, stacked, caches, x, pos, *, impl: Impl,
                  use_rope: bool = True):
-    """Walk the layer stack for one new token; the stacked caches
-    ({"k", "v"} of (L, B, S, Hkv, Dh)) are updated in place."""
-    for i in range(caches["k"].shape[0]):
+    """Walk the layer stack for one new token; the stacked decode state
+    (dense: {"k", "v"} of (L, B, S, Hkv, Dh); ssm: {"ssd", "conv"}) is
+    updated in place."""
+    for i in range(num_layers(stacked)):
         x, _ = decode_block(cfg, layer(stacked, i), x,
-                            {"k": caches["k"][i], "v": caches["v"][i]}, pos,
+                            {k: c[i] for k, c in caches.items()}, pos,
                             impl=impl, use_rope=use_rope)
     return x, caches

@@ -3,7 +3,8 @@
 
 Requests (prompts) occupy slots of a size-B decode batch; every engine tick
 runs ONE decode_step for all slots with per-slot positions (the per-slot KV
-insert is ``kvcache.dense_cache_insert_rows``). New requests join as slots
+insert is ``kvcache.dense_cache_insert_rows``; the SSM family carries a
+recurrent state per slot instead). New requests join as slots
 free up. Prompt tokens are fed incrementally through the same decode path
 (teacher-forced), then generation continues from the model's samples until
 EOS/max_new.
@@ -96,9 +97,10 @@ class ServingEngine:
                 req = self.queue.pop(i)
                 req.slot = b
                 self.slots[b] = req
-                # reset slot: zero its cache rows + position
-                self.state["caches"]["k"][:, b] = 0
-                self.state["caches"]["v"][:, b] = 0
+                # reset slot: zero its row of every decode-state leaf (KV
+                # cache or SSM state) + its position
+                for leaf in self.state["caches"].values():
+                    leaf[:, b] = 0
                 self.state["pos"][b] = 0
                 self.current_token[b, 0] = req.prompt[0]
                 self.prompt_cursor[b] = 1

@@ -10,15 +10,20 @@ import pytest
 import torch
 
 from repro.configs import get_reduced as jget_reduced
+from repro.configs import replace as jreplace
 from repro.models import decode_step as jdecode_step
+from repro.models import forward as jforward
 from repro.models import init_decode_state as jinit_decode_state
 from repro.models import init_params as jinit_params
+from repro.models.layers import lm_logits as jlm_logits
 from repro.models.transformer import Impl as JImpl
 
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import get_config, get_reduced, replace
 from repro_torch.convert import params_from_numpy
-from repro_torch.models import Impl, decode_step, init_decode_state, init_params
+from repro_torch.models import (Impl, decode_step, forward, init_decode_state,
+                                init_params)
 from repro_torch.models import kvcache
+from repro_torch.models.layers import lm_logits
 
 JIMPL = JImpl(attention="naive", remat=False)
 TOL = 1e-4
@@ -113,6 +118,47 @@ def test_init_params_tree_matches_reference(both):
     w = ours["blocks"]["ffn"]["up"]
     assert w.abs().max() <= 2.0 / cfg.d_model ** 0.5 + 1e-6   # truncated at 2σ
     assert abs(ours["embed"]["tok"].std().item() - 0.02) < 0.004
+
+
+def test_bf16_forward_with_f32_params_rounds_the_head_like_jax():
+    """A bf16 forward with f32 parameters: the reference rounds the head to
+    bf16 and accumulates the product in f32. The stack is cut to 0 layers
+    and the tied embedding scaled by 50 (logits of O(50)), so that what is
+    left is embedding → final norm → head, and an f32 head (a difference of
+    ~0.05 at this scale) cannot hide in bf16 noise of the blocks."""
+    jcfg = jreplace(JCFG, num_layers=0)
+    cfg = replace(get_reduced("llama3.2-1b"), num_layers=0)
+    jparams = jinit_params(jcfg, jax.random.PRNGKey(0))
+    jparams["embed"]["tok"] = jparams["embed"]["tok"] * 50.0
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 24))
+    want, _ = jforward(jcfg, jparams, {"tokens": jnp.asarray(toks, jnp.int32)},
+                       impl=JIMPL, dtype=jnp.bfloat16)
+    got, _ = forward(cfg, tparams, {"tokens": torch.from_numpy(toks)},
+                     dtype=torch.bfloat16)
+    want = np.asarray(want)[..., :cfg.vocab_size]
+    assert np.abs(want).max() > 20.0
+    np.testing.assert_allclose(got.numpy()[..., :cfg.vocab_size], want,
+                               rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_lm_logits_match_jax_with_f32_head_and_bf16_input(tied):
+    """The same bf16 activations and f32 head through both heads give the
+    same f32 logits up to the order of f32 sums."""
+    cfg = replace(get_reduced("llama3.2-1b"), tie_embeddings=tied)
+    rng = np.random.default_rng(6)
+    w = rng.standard_normal((256, cfg.d_model)).astype(np.float32)
+    params = {"tok": w} if tied else {"tok": w, "head": np.ascontiguousarray(w.T)}
+    x = rng.standard_normal((3, 5, cfg.d_model)).astype(np.float32)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(jlm_logits(jreplace(JCFG, tie_embeddings=tied),
+                                 {k: jnp.asarray(v) for k, v in params.items()},
+                                 jx))
+    got = lm_logits(cfg, {k: torch.from_numpy(v) for k, v in params.items()},
+                    torch.from_numpy(x).bfloat16())
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_full_config_is_llama3p2_1b():
