@@ -35,8 +35,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              (identical argmax, max abs difference printed).
 
 Then a ``kernels`` JSON line (times from CUDA events, bounds from this
-run's inputs, launches summed over the prefill and serve phases), the
-``nvidia-smi`` line, and as the last line
+run's inputs, launches summed over the prefill and serve phases; the flash
+and SSD rows add ``earlier_ms``, the CUDA-core design they replaced timed
+in this run, ``kernels_per_call``, the SSD's ``pass_ms`` and
+``tensor_core_instr``, the HGMMA/HMMA instructions in the SASS of their
+bf16 kernels), the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Imports neither JAX nor the ``repro``
 package.
 """
@@ -202,50 +205,93 @@ def phase_kernels():
     return err
 
 
-def flash_inputs(gen, B, Sq, Skv, H, Hkv, Dh, dtype, tail=3):
+def flash_inputs(gen, B, Sq, Skv, H, Hkv, Dh, dtype, tail=3, layout="ordered"):
     """Random q/k/v; queries at the last Sq positions of Skv; the last
-    ``tail`` kv slots unfilled (kv_pos -1)."""
+    ``tail`` kv slots unfilled (kv_pos -1). ``layout`` orders the kv
+    positions: "ordered" (slot = position), "ring" (a rotated ring of
+    positions from 5000, as a ring cache holds them) or "perm" (a random
+    permutation per batch row)."""
     q = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, Skv, Hkv, Dh), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, Skv, Hkv, Dh), generator=gen, device="cuda").to(dtype)
     qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device="cuda")[None] \
         .expand(B, Sq).contiguous()
-    kp = torch.arange(Skv, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    ar = torch.arange(Skv, device="cuda")
+    if layout == "ring":
+        kp = ((ar + 7 * Skv // 10) % Skv + 5000)[None].repeat(B, 1)
+        qp = qp + 5000
+    elif layout == "perm":
+        kp = torch.stack([torch.randperm(Skv, generator=gen, device="cuda")
+                          for _ in range(B)])
+    else:
+        kp = ar[None].repeat(B, 1)
+    kp = kp.to(torch.int32)
     if tail:
         kp[:, -tail:] = -1
     return q, k, v, qp, kp
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` whose start is 2 bytes off 16-byte
+    alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def refuses(fn, what):
+    """Fail unless ``fn()`` raises ValueError."""
+    try:
+        fn()
+    except ValueError:
+        return
+    check(False, f"{what}: accepted a misaligned input")
 
 
 def check_flash(gen):
     """The flash kernel against its plain version: the prefill shape
     (4, 2048, 32, 8, 64) causal in bf16 and f32, a window, non-causal with
     Skv != Sq, padded query rows (exactly 0), kv_pos -1 tails, Dh 128 with
-    one kv head, ragged lengths. → the worst bf16 error."""
+    one kv head, ragged lengths; kv positions out of order (a rotated ring
+    and random permutations, the tile skip must stay conservative), Sq and
+    Skv off the 64- and 128-row tiles at Dh 128, and windows whose edges
+    fall inside tiles. → the worst bf16 error."""
     from repro_torch.kernels import flash_attention as fa
-    cases = [  # B, Sq, Skv, H, Hkv, Dh, causal, window, tail, padded q rows
-        (4, 2048, 2048, 32, 8, 64, True, None, 0, 0),
-        (2, 700, 700, 16, 4, 64, True, 128, 3, 0),
-        (2, 300, 1000, 8, 8, 64, False, None, 37, 5),
-        (2, 257, 257, 8, 1, 128, True, None, 3, 2),
-        (3, 1, 333, 4, 2, 128, True, 64, 3, 0),
+    cases = [  # B, Sq, Skv, H, Hkv, Dh, causal, window, tail, padded q rows, layout
+        (4, 2048, 2048, 32, 8, 64, True, None, 0, 0, "ordered"),
+        (2, 700, 700, 16, 4, 64, True, 128, 3, 0, "ordered"),
+        (2, 300, 1000, 8, 8, 64, False, None, 37, 5, "ordered"),
+        (2, 257, 257, 8, 1, 128, True, None, 3, 2, "ordered"),
+        (3, 1, 333, 4, 2, 128, True, 64, 3, 0, "ordered"),
+        (2, 300, 1000, 16, 4, 64, True, 256, 0, 0, "ring"),
+        (2, 200, 777, 8, 2, 128, True, None, 5, 0, "perm"),
+        (2, 190, 600, 8, 4, 128, False, 70, 0, 3, "perm"),
+        (2, 333, 459, 16, 8, 128, True, None, 5, 3, "ordered"),
+        (1, 517, 517, 8, 2, 64, True, 100, 0, 0, "ordered"),
     ]
     worst = 0.0
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
-        for B, Sq, Skv, H, Hkv, Dh, causal, win, tail, pad in cases:
-            q, k, v, qp, kp = flash_inputs(gen, B, Sq, Skv, H, Hkv, Dh, dtype, tail)
+        for B, Sq, Skv, H, Hkv, Dh, causal, win, tail, pad, layout in cases:
+            q, k, v, qp, kp = flash_inputs(gen, B, Sq, Skv, H, Hkv, Dh, dtype, tail,
+                                           layout)
             if pad:
                 qp[:, -pad:] = -2
             got = fa.flash_attention_cuda(q, k, v, qp, kp, causal=causal, window=win)
             want = fa.flash_attention_plain(q, k, v, qp, kp, causal=causal,
                                             window=win)
             e = (got.float() - want.float()).abs().max().item()
-            case = (B, Sq, Skv, H, Hkv, Dh, causal, win, tail, pad, str(dtype))
+            case = (B, Sq, Skv, H, Hkv, Dh, causal, win, tail, pad, layout, str(dtype))
             check(e <= tol, f"flash_attention {case}: max err {e} > {tol}")
             check(not pad or got[:, -pad:].abs().max().item() == 0.0,
                   f"flash_attention {case}: a padded query row is not 0")
             if dtype == torch.bfloat16:
                 worst = max(worst, e)
             del q, k, v, got, want
+    q, k, v, qp, kp = flash_inputs(gen, 1, 64, 64, 4, 2, 64, torch.bfloat16, 0,
+                                   "ordered")
+    refuses(lambda: fa.flash_attention_cuda(q, misaligned(k), v, qp, kp),
+            "flash_attention")
     return worst
 
 
@@ -269,16 +315,33 @@ def ssd_inputs(gen, B, S, H, P, G, N, dtype):
 def check_ssd(gen):
     """The SSD kernel against its plain version (both finite) at mamba2's
     prefill shape (4, 2048, 64, 64, G=1, N=128, Q=128), a length that is not
-    a chunk multiple, an init_state, and G > 1; |got - want| <= tol·(1 +
-    |want|) with tol 1e-4 in f32 and 2e-2 in bf16. → the worst bf16
-    absolute error."""
+    a chunk multiple, an init_state, G > 1, one step, a sequence shorter
+    than one chunk, and mamba2's shape run as two calls (the first call's
+    final state the second's init_state) against one plain call over the
+    whole sequence; and shapes whose bf16 y tile (Q x P) is larger than
+    their f32 S_in (P x N); |got - want| <= tol·(1 + |want|) with tol 1e-4 in f32
+    and 2e-2 in bf16. → the worst bf16 absolute error."""
     from repro_torch.kernels import ssd_scan as ss
     cases = [  # B, S, H, P, G, N, Q, init
         (4, 2048, 64, 64, 1, 128, 128, False),
         (2, 1000, 16, 64, 4, 128, 128, True),
         (1, 77, 8, 32, 2, 64, 64, False),
+        (2, 1, 16, 64, 2, 128, 128, True),
+        (2, 77, 16, 64, 1, 128, 128, True),
+        (2, 300, 16, 64, 2, 64, 128, True),
+        (2, 300, 8, 32, 1, 32, 128, False),
+        (1, 200, 16, 64, 4, 32, 64, True),
     ]
     worst = 0.0
+
+    def compare(case, pairs, tol):
+        check(all(bool(torch.isfinite(t).all()) for pair in pairs for t in pair),
+              f"ssd_scan {case}: a non-finite output")
+        for got, want in pairs:
+            excess = ((got - want).abs() - tol * (1 + want.abs())).max().item()
+            check(excess <= 0, f"ssd_scan {case}: error over tolerance by {excess}")
+        return (pairs[0][0] - pairs[0][1]).abs().max().item()
+
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         for B, S, H, P, G, N, Q, init in cases:
             x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, B, S, H, P, G, N, dtype)
@@ -286,17 +349,26 @@ def check_ssd(gen):
                   if init else None)
             y, st = ss.ssd_scan_cuda(x, dt, A_log, Bm, Cm, D, s0, chunk=Q)
             yw, sw = ss.ssd_scan_plain(x, dt, A_log, Bm, Cm, D, s0, chunk=Q)
-            case = (B, S, H, P, G, N, Q, init, str(dtype))
-            check(bool(torch.isfinite(yw).all()) and bool(torch.isfinite(y).all())
-                  and bool(torch.isfinite(st).all()),
-                  f"ssd_scan {case}: a non-finite output")
-            for got, want in ((y.float(), yw.float()), (st, sw)):
-                excess = ((got - want).abs() - tol * (1 + want.abs())).max().item()
-                check(excess <= 0, f"ssd_scan {case}: error over tolerance "
-                                   f"by {excess}")
-            if dtype == torch.bfloat16:
-                worst = max(worst, (y.float() - yw.float()).abs().max().item())
+            e = compare((B, S, H, P, G, N, Q, init, str(dtype)),
+                        [(y.float(), yw.float()), (st, sw)], tol)
+            worst = max(worst, e) if dtype == torch.bfloat16 else worst
             del x, y, yw
+
+        # continuation: two calls split at step 1000 (inside a chunk)
+        x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, 4, 2048, 64, 64, 1, 128, dtype)
+        cut = 1000
+        part = [t[:, :cut].contiguous() for t in (x, dt, Bm, Cm)]
+        rest = [t[:, cut:].contiguous() for t in (x, dt, Bm, Cm)]
+        y1, s1 = ss.ssd_scan_cuda(part[0], part[1], A_log, part[2], part[3], D)
+        y2, s2 = ss.ssd_scan_cuda(rest[0], rest[1], A_log, rest[2], rest[3], D, s1)
+        yw, sw = ss.ssd_scan_plain(x, dt, A_log, Bm, Cm, D)
+        e = compare(("continuation at", cut, str(dtype)),
+                    [(torch.cat([y1, y2], 1).float(), yw.float()), (s2, sw)], tol)
+        worst = max(worst, e) if dtype == torch.bfloat16 else worst
+        del x, y1, y2, yw
+    x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, 1, 64, 8, 64, 1, 128, torch.bfloat16)
+    refuses(lambda: ss.ssd_scan_cuda(x, dt, A_log, Bm, misaligned(Cm), D, chunk=64),
+            "ssd_scan")
     return worst
 
 
@@ -692,10 +764,31 @@ def _row(name, source, replaces, launches, err, shape, ms, plain_ms, nbytes,
                 library_ms=library_ms, shape=shape, **extra)
 
 
+def tensor_core_instr(source, kernels):
+    """The tensor-core instructions (HGMMA, HMMA) in the SASS of the
+    functions of the built ``source`` library whose names contain one of
+    ``kernels``, counted from ``cuobjdump -sass``."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(source))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = any(k in line for k in kernels)
+        elif inside and re.search(r"\bH(G)?MMA\.", line):
+            count += 1
+    return count
+
+
 def flash_row(gen, launches, err):
     """Flash attention at the llama3.2-1b prefill's shape: 4 prompts of
     2048 tokens, 32 query heads over 8 kv heads of 64, causal, bf16. The
-    operations are 4·Dh·H per valid (q, kv) pair of this run's positions."""
+    operations are 4·Dh·H per valid (q, kv) pair of this run's positions.
+    ``earlier_ms`` is the CUDA-core design timed here on the same inputs."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     B, S, H, Hkv, Dh = 4, 2048, 32, 8, 64
@@ -709,16 +802,23 @@ def flash_row(gen, launches, err):
                 "src/repro/kernels/flash_attention.py:76", launches, err,
                 f"q ({B}, {S}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
                 f"causal", cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, qp, kp),
-                                   10),
+                                   20),
                 cuda_ms(lambda: fa.flash_attention_plain(q, k, v, qp, kp), 2),
-                nbytes, 4 * Dh * H * pairs, "bf16", lib, valid_pairs=pairs)
+                nbytes, 4 * Dh * H * pairs, "bf16", lib, valid_pairs=pairs,
+                earlier_ms=cuda_ms(lambda: fa._flash_attention_cuda_cores(
+                    q, k, v, qp, kp), 5),
+                kernels_per_call=1,
+                tensor_core_instr=tensor_core_instr("flash_attention",
+                                                    ("flash_fwd_wgmma",)))
 
 
 def ssd_row(gen, launches, err):
     """The SSD scan at the mamba2-1.3b prefill's shape: 4 prompts of 2048
     tokens, 64 heads of 64, one group of N = 128, chunk 128, bf16. The
     operations are the chunked form's: per chunk and head, C·Bᵀ and att·x
-    over the Q(Q+1)/2 causal pairs, the inter term and the state carry."""
+    over the Q(Q+1)/2 causal pairs, the inter term and the state carry.
+    A call is three kernels, each also timed alone (``pass_ms``);
+    ``earlier_ms`` is the CUDA-core design timed here on the same inputs."""
     from repro_torch.kernels import ssd_scan as ss
     B, S, H, P, G, N, Q = 4, 2048, 64, 64, 1, 128, 128
     x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16)
@@ -726,14 +826,21 @@ def ssd_row(gen, launches, err):
     ops = 2 * B * H * n_chunks * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P)
     nbytes = (2 * x.numel() + Bm.numel() + Cm.numel()) * 2 + dt.numel() * 4 \
         + 2 * H * 4 + B * H * P * N * 4
+    _, passes = ss.bf16_launches(x, dt, A_log, Bm, Cm, D, chunk=Q)
     return _row("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:70",
                 launches, err,
                 f"x ({B}, {S}, {H}, {P}) bf16, B/C ({B}, {S}, {G}, {N}), chunk {Q}",
                 cuda_ms(lambda: ss.ssd_scan_cuda(x, dt, A_log, Bm, Cm, D, chunk=Q),
-                        10),
+                        20),
                 cuda_ms(lambda: ss.ssd_scan_plain(x, dt, A_log, Bm, Cm, D,
                                                   chunk=Q), 2),
-                nbytes, ops, "bf16", None)
+                nbytes, ops, "bf16", None,
+                earlier_ms=cuda_ms(lambda: ss._ssd_scan_cuda_cores(
+                    x, dt, A_log, Bm, Cm, D, chunk=Q), 5),
+                kernels_per_call=len(passes),
+                pass_ms={name: cuda_ms(run, 20) for name, run in passes},
+                tensor_core_instr=tensor_core_instr(
+                    "ssd_scan", ("ssd_states_mma", "ssd_output_mma")))
 
 
 def main():

@@ -4,35 +4,78 @@
 // (src/repro/kernels/flash_attention.py:76): q (B, Sq, H, Dh) attends over
 // k/v (B, Skv, Hkv, Dh), GQA by h // g, masked by positions (kv_pos >= 0,
 // causal kv_pos <= q_pos, optional window q_pos - kv_pos < window; positions
-// may be out of order), scale Dh^-0.5, online softmax in f32, fully masked
-// tiles skipped, out = acc / max(l, 1e-30), rows with q_pos < 0 exactly 0,
-// output in q's dtype.
+// may be out of order), scale Dh^-0.5, online softmax in f32, masked tiles
+// skipped, out = acc / max(l, 1e-30), rows with q_pos < 0 exactly 0, output
+// in q's dtype. Sq and Skv may be ragged: nothing is padded on the host.
 //
 // Bound on the H100: operations. At prefill every K/V tile is reused by all
-// kBQ query rows of a block, so the work is ~4·Sq·Skv·Dh flops (halved by
-// the causal skip) against O((Sq + Skv)·Dh) bytes; at (4, 2048, 32, 64) that
-// is far above the ~295 flops per byte where the tensor cores stop waiting
-// on memory. This first version runs its products on the CUDA cores in f32
-// (67 TFLOP/s peak), not on the tensor cores, so it sits well above the
-// bf16 bound: wgmma and TMA are work for a later change.
+// the query rows of a block, so the work is 4·Dh flops per valid (q, kv)
+// pair and head against O((Sq + Skv)·Dh) bytes: at (4, 2048, 32/8, 64)
+// causal that is 6.9e10 flops, 0.070 ms at the 989 TFLOP/s of bf16 on the
+// tensor cores, far above the ~295 flops per byte where they stop waiting on
+// memory.
 //
-// Design. The TPU grid (B, H, nq, nk) walks kv in order with the (m, l, acc)
-// state in VMEM. Here one block of 256 threads owns (q tile of 64 rows, one
-// query head, b) and walks the kv tiles of 64 rows itself, with the state in
-// registers: thread (ty, tx) holds rows ty*4..+3 and score columns tx*4..+3,
-// and accumulates head dims tx*4 + 64*j. Q and K tiles sit transposed in
-// shared memory (float4 reads along rows and columns), V in natural layout,
-// and P is staged transposed for the P·V product. The GQA head is read
-// through h // g, never repeated. A kv tile is skipped when no (q, kv) pair
-// of it is valid, tested on positions (any order) with __syncthreads_or
-// before any K/V byte is read. Masked scores are forced to p = 0 explicitly,
-// so a row that has seen only masked keys (m = -1e30) adds nothing. The
-// ragged ends of Sq and Skv are masked in the kernel, never padded.
+// bf16: flash_fwd_wgmma, on the tensor cores. One block of 288 threads per
+// (q tile of 128 rows, query head, b): two consumer warpgroups of 64 q rows
+// each and one producer warp. The q tiles launch heaviest first (blockIdx.z
+// counts down), so the long causal rows start before the short ones.
+//  - Loads: TMA with 128-byte swizzle. The tensors are strided (B, S, H, Dh),
+//    so each tensor map is 4-d {Dh, heads, S, B} and a tile is a box of 64
+//    head dims x 1 head x rows x 1 batch row (Dh 128 is two boxes). The Q
+//    tile is loaded once; K/V tiles of 128 rows go through a ring of stages
+//    (4 at Dh 64, 2 at Dh 128; 147 / 162 KB of shared memory) with a full
+//    and an empty mbarrier each. Rows past Sq or Skv arrive as zeros and
+//    their kv_pos is taken as -1.
+//  - Skipping: the producer reads each tile's kv_pos (four per lane) and
+//    issues its TMA only if some valid kv_pos lies in [min q_pos - window +
+//    1, max q_pos] of the block's valid query rows (without a window only the
+//    upper end, without causal only the lower end): conservative for
+//    positions in any order. It hands the consumers each tile's kv_pos
+//    through the ring, and marks a tile whose every pair is valid for every
+//    valid query row, so that the consumers skip its mask; -1 ends the walk.
+//  - S = Q·Kᵀ: wgmma m64n128k16, both operands K-major in shared memory.
+//  - Mask and online softmax on the accumulator fragments: a thread holds
+//    rows r and r + 8 of its warp's 16; row max and sum run over the 4
+//    threads of a quad (shfl_xor 1, 2), l is reduced once at the end.
+//    Masked scores are -inf and a row that has seen no valid key yet takes
+//    0 as its max, so every masked p is exp2(-inf) = 0 exactly and such a
+//    row adds nothing. exp is exp2 with log2(e) folded into the scale.
+//  - O += P·V: wgmma m64n{Dh}k16 with P from registers (the f32 score
+//    fragment of m64n128 lines up with the bf16 A fragments of k16) and V
+//    MN-major in shared memory (trans-b), f32 accumulators.
+// Rounding points: q, k, v are bf16 operands; S, the softmax state and O
+// accumulate in f32; P is rounded to bf16 for P·V while l sums the f32 p;
+// the output is rounded to bf16 once.
+// ptxas (sm_90a, -O3): flash_fwd_wgmma<64> 155 registers, <128> 168; no
+// spills.
+//
+// CUDA cores: flash_fwd<T, DH>, the earlier design. Its f32 instance is the f32
+// kernel, kept because the f32 tolerance (2e-5) cannot be met with bf16 or
+// TF32 operands; only the f32 parity checks run it. Its bf16 instance
+// (flash_attention_bf16_cuda_cores) is on no path of the port: it is the
+// earlier design that chip_smoke.py times beside the tensor-core kernel.
+// One block of 256 threads owns (q tile of 64 rows, one query head, b) and
+// walks the kv tiles of 64 rows itself, with the state in registers: thread
+// (ty, tx) holds rows ty*4..+3 and score columns tx*4..+3, and accumulates
+// head dims tx*4 + 64*j. Q and K tiles sit transposed in shared memory (f32,
+// float4 reads along rows and columns), V in natural layout, and P is staged
+// transposed for the P·V product. A kv tile is skipped when no (q, kv) pair
+// of it is valid, tested on positions with __syncthreads_or before any K/V
+// byte is read.
+// ptxas (sm_90a, -O3): flash_fwd<T, 64> 79 registers, <T, 128> 127, both
+// dtypes; no spills.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// CUDA cores: f32, and bf16 as the yardstick
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;            // query rows per block
@@ -241,6 +284,498 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma + TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kWg = 128;                 // threads of a warpgroup
+constexpr int kBM = 128;                 // q rows per block: two consumer warpgroups
+constexpr int kBN = 128;                 // kv rows per tile
+constexpr int kRow = 128;                // bytes of one swizzled row: 64 bf16
+constexpr int kFwdThreads = 2 * kWg + 32;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kEnd = -1, kPartial = 0, kFull = 1;   // kinds of ring entries
+
+template <int DH>
+struct Layout {                          // byte offsets in dynamic shared memory
+  static constexpr int kHalves = DH / 64;                // 64-wide head-dim boxes
+  static constexpr int kStages = DH == 64 ? 4 : 2;
+  static constexpr int kQ = kHalves * kBM * kRow;        // the Q tile
+  static constexpr int kKV = kHalves * kBN * kRow;       // one K or V tile
+  static constexpr int kOffK = kQ;
+  static constexpr int kOffV = kOffK + kStages * kKV;
+  static constexpr int kOffPos = kOffV + kStages * kKV;  // int [kStages][kBN]
+  static constexpr int kOffTile = kOffPos + kStages * kBN * 4;   // int [kStages]
+  static constexpr int kOffBar = kOffTile + kStages * 8;         // u64 [1 + 2 kStages]
+  static constexpr int kBytes = kOffBar + (1 + 2 * kStages) * 8 + 1024;  // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA box of the 4-d tensor map into shared memory; completes on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading and
+// stride byte offsets (16-byte units), layout type 1 in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 2^x; exactly 0 for x = -inf
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (64 x 64) {=, +=} A (64 x 16) * B (16 x 64), both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128) {=, +=} A (64 x 16) * B (16 x 128), both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64) += A (64 x 16, bf16 registers) * B (16 x 64, shared memory, MN-major).
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128) += A (64 x 16, bf16 registers) * B (16 x 128, shared memory, MN-major).
+__device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>                        // N = kBN / 2 accumulators
+__device__ __forceinline__ void wgmma_qk(float (&s)[N], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 32)
+    wgmma_m64n64_ss(s, da, db, accumulate);
+  else
+    wgmma_m64n128_ss(s, da, db, accumulate);
+}
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DH == 64)
+    wgmma_m64n64_rs(o, a, db);
+  else
+    wgmma_m64n128_rs(o, a, db);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_wgmma(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const int32_t* __restrict__ q_pos,
+    const int32_t* __restrict__ kv_pos, __nv_bfloat16* __restrict__ out, int Sq, int Skv,
+    int H, int Hkv, int causal, int window, float scale_log2) {
+  using L = Layout<DH>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  // TMA boxes with 128-byte swizzle need 1024-byte aligned destinations
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kOffBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  int* pos_s = reinterpret_cast<int*>(smem + L::kOffPos);
+  int* tile_s = reinterpret_cast<int*>(smem + L::kOffTile);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nk = (Skv + kBN - 1) / kBN;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWg);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 2 * kWg) {
+    // ---- producer warp ----
+    const int kvh = h / (H / Hkv);
+    int qlo = INT_MAX, qhi = INT_MIN;
+    for (int r = lane; r < kBM && q0 + r < Sq; r += 32) {
+      const int p = q_pos[(size_t)b * Sq + q0 + r];
+      if (p >= 0) {
+        qlo = min(qlo, p);
+        qhi = max(qhi, p);
+      }
+    }
+    qlo = __reduce_min_sync(0xffffffffu, qlo);
+    qhi = __reduce_max_sync(0xffffffffu, qhi);
+    if (lane == 0) {
+      mbar_expect_tx(q_full, L::kQ);
+      for (int hf = 0; hf < L::kHalves; ++hf)
+        tma_load(smem + hf * kBM * kRow, &tm_q, q_full, hf * 64, h, q0, b);
+    }
+    const bool any_q = qlo <= qhi;
+    const long long lo = window > 0 ? (long long)qlo - window + 1 : LLONG_MIN;
+    const long long hi = causal ? (long long)qhi : LLONG_MAX;
+    int stage = 0, phase = 0;
+    for (int t = 0; t < nk; ++t) {
+      const int k0 = t * kBN;
+      int kp[kBN / 32];
+      bool hit = false, all = true;      // all: every pair valid for every valid row
+#pragma unroll
+      for (int e = 0; e < kBN / 32; ++e) {
+        const int r = k0 + 32 * e + lane;
+        kp[e] = r < Skv ? kv_pos[(size_t)b * Skv + r] : -1;
+        hit = hit || (kp[e] >= 0 && kp[e] >= lo && kp[e] <= hi);
+        all = all && kp[e] >= 0 && (!causal || kp[e] <= qlo) &&
+              (window <= 0 || (long long)qhi - kp[e] < window);
+      }
+      if (!__any_sync(0xffffffffu, any_q && hit)) continue;   // no valid pair: no bytes
+      const bool no_mask = __all_sync(0xffffffffu, all);
+      mbar_wait(&empty[stage], phase ^ 1);
+#pragma unroll
+      for (int e = 0; e < kBN / 32; ++e) pos_s[stage * kBN + 32 * e + lane] = kp[e];
+      if (lane == 0) tile_s[stage] = no_mask ? kFull : kPartial;
+      __threadfence_block();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_expect_tx(&full[stage], 2 * L::kKV);
+        uint8_t* ks = smem + L::kOffK + stage * L::kKV;
+        uint8_t* vs = smem + L::kOffV + stage * L::kKV;
+        for (int hf = 0; hf < L::kHalves; ++hf) {
+          tma_load(ks + hf * kBN * kRow, &tm_k, &full[stage], hf * 64, kvh, k0, b);
+          tma_load(vs + hf * kBN * kRow, &tm_v, &full[stage], hf * 64, kvh, k0, b);
+        }
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    mbar_wait(&empty[stage], phase ^ 1);
+    if (lane == 0) {
+      tile_s[stage] = kEnd;
+      mbar_arrive(&full[stage]);
+    }
+  } else {
+    // ---- consumer warpgroups: 64 q rows each ----
+    const int wg = tid / kWg, warp = (tid % kWg) / 32;
+    const int r0 = wg * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+    const int qp0 = q0 + r0 < Sq ? q_pos[(size_t)b * Sq + q0 + r0] : -1;
+    const int qp1 = q0 + r1 < Sq ? q_pos[(size_t)b * Sq + q0 + r1] : -1;
+    const uint32_t sq = smem_u32(smem) + wg * 64 * kRow;
+    float o[DH / 2];
+#pragma unroll
+    for (int j = 0; j < DH / 2; ++j) o[j] = 0.f;
+    // running max in the exp2 domain (-inf until a row sees a valid key)
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    mbar_wait(q_full, 0);
+    int stage = 0, phase = 0;
+    for (;;) {
+      mbar_wait(&full[stage], phase);
+      const int kind = tile_s[stage];
+      if (kind == kEnd) break;
+      const uint32_t sk = smem_u32(smem + L::kOffK + stage * L::kKV);
+      const uint32_t sv = smem_u32(smem + L::kOffV + stage * L::kKV);
+
+      float s[kBN / 2];
+#pragma unroll
+      for (int j = 0; j < kBN / 2; ++j) s[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {   // 16 head dims per step
+        const uint32_t dq = (kk / 4) * kBM * kRow + (kk % 4) * 32;
+        const uint32_t dk = (kk / 4) * kBN * kRow + (kk % 4) * 32;
+        wgmma_qk(s, sw128_desc(sq + dq, 16, 8 * kRow), sw128_desc(sk + dk, 16, 8 * kRow),
+                 kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // s[j] is (row r0 + 8·((j/2)%2), column 8·(j/4) + 2·(lane%4) + j%2)
+      if (kind == kPartial) {              // masked scores are -inf
+        const int* kp = pos_s + stage * kBN;
+#pragma unroll
+        for (int j = 0; j < kBN / 2; ++j) {
+          const int kpos = kp[(j >> 2) * 8 + (lane & 3) * 2 + (j & 1)];
+          if (!pair_valid((j & 2) ? qp1 : qp0, kpos, causal, window)) s[j] = -INFINITY;
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kBN / 2; ++j) {
+        if (j & 2)
+          mx1 = fmaxf(mx1, s[j]);
+        else
+          mx0 = fmaxf(mx0, s[j]);
+      }
+#pragma unroll
+      for (int o2 = 1; o2 < 4; o2 <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
+      }
+      const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+      // a row with no valid key yet subtracts 0: its p = exp2(-inf) = 0
+      const float ms0 = mn0 == -INFINITY ? 0.f : mn0, ms1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float c0 = ex2(m0 - ms0), c1 = ex2(m1 - ms1);
+      m0 = mn0;
+      m1 = mn1;
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBN / 2; ++j) {
+        s[j] = ex2(fmaf(s[j], scale_log2, (j & 2) ? -ms1 : -ms0));
+        if (j & 2)
+          ls1 += s[j];
+        else
+          ls0 += s[j];
+      }
+      l0 = l0 * c0 + ls0;
+      l1 = l1 * c1 + ls1;
+      uint32_t pf[kBN / 16][4];            // P as the bf16 A fragments of the k16 steps
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+#pragma unroll
+      for (int j = 0; j < DH / 2; ++j) o[j] *= (j & 2) ? c1 : c0;
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)   // 16 kv rows per step
+        wgmma_pv<DH>(o, pf[kk], sw128_desc(sv + kk * 16 * kRow, kBN * kRow, 8 * kRow));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      mbar_arrive(&empty[stage]);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    __nv_bfloat16* o0 = out + (((size_t)b * Sq + q0 + r0) * H + h) * DH + (lane & 3) * 2;
+    __nv_bfloat16* o1 = o0 + (size_t)8 * H * DH;
+#pragma unroll
+    for (int nb = 0; nb < DH / 8; ++nb) {
+      if (q0 + r0 < Sq)
+        *reinterpret_cast<uint32_t*>(o0 + nb * 8) =
+            qp0 < 0 ? 0u : pack_bf16(o[4 * nb] * inv0, o[4 * nb + 1] * inv0);
+      if (q0 + r1 < Sq)
+        *reinterpret_cast<uint32_t*>(o1 + nb * 8) =
+            qp1 < 0 ? 0u : pack_bf16(o[4 * nb + 2] * inv1, o[4 * nb + 3] * inv1);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled lives in libcuda: its entry point is looked up
+// through the CUDA runtime, so the library links nothing beyond cudart.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The 4-d map {Dh, heads, S, B} of a contiguous (B, S, heads, Dh) bf16 tensor,
+// boxes of 64 head dims x 1 head x rows x 1, 128-byte swizzle, zeros past S.
+bool make_map(CUtensorMap* map, const void* base, int Dh, int heads, int S, int B, int rows) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)Dh * 2, (cuuint64_t)heads * Dh * 2,
+                                 (cuuint64_t)S * heads * Dh * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch_wgmma_dh(const void* q, const void* k, const void* v, const void* q_pos,
+                    const void* kv_pos, void* out, int B, int Sq, int Skv, int H, int Hkv,
+                    int causal, int window, float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, DH, H, Sq, B, kBM) || !make_map(&tk, k, DH, Hkv, Skv, B, kBN) ||
+      !make_map(&tv, v, DH, Hkv, Skv, B, kBN))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = Layout<DH>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<DH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
+  flash_fwd_wgmma<DH><<<grid, kFwdThreads, smem, st>>>(
+      tq, tk, tv, static_cast<const int32_t*>(q_pos), static_cast<const int32_t*>(kv_pos),
+      static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Hkv, causal, window, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -255,13 +790,29 @@ int flash_attention_f32(const void* q, const void* k, const void* v,
                        causal, window, scale, stream);
 }
 
-// The same for bf16 q/k/v/out (softmax state and accumulation stay f32).
+// The same for bf16 q/k/v/out (16-byte aligned), on the tensor cores.
 int flash_attention_bf16(const void* q, const void* k, const void* v,
                          const void* q_pos, const void* kv_pos, void* out, int B,
                          int Sq, int Skv, int H, int Hkv, int Dh, int causal,
                          int window, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv,
-                               Dh, causal, window, scale, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dh == 64)
+    return launch_wgmma_dh<64>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, causal,
+                               window, scale, st);
+  if (Dh == 128)
+    return launch_wgmma_dh<128>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, causal,
+                                window, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The CUDA-core design on bf16 q/k/v/out (softmax state and accumulation f32):
+// not on any path of the port, timed beside flash_attention_bf16.
+int flash_attention_bf16_cuda_cores(const void* q, const void* k, const void* v,
+                                    const void* q_pos, const void* kv_pos, void* out,
+                                    int B, int Sq, int Skv, int H, int Hkv, int Dh,
+                                    int causal, int window, float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, Dh,
+                               causal, window, scale, stream);
 }
 
 }  // extern "C"

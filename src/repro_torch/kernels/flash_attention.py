@@ -8,11 +8,12 @@ window``; positions may be out of order. The softmax runs online over kv
 chunks in f32 with scale Dh^-0.5, a row with ``q_pos < 0`` gives exactly 0,
 and the output has q's dtype.
 
-:func:`flash_attention_cuda` launches ``csrc/flash_attention.cu`` (one block
-per q tile of 64 rows, head and batch row, walking kv tiles with the
-softmax state in registers; fully masked tiles skipped). Its ragged ends
-are masked in the kernel, so no shape is padded. :func:`flash_attention_plain`
-is the forward of ``flash_jnp.flash_attention_jnp``, chunked over q rows as
+:func:`flash_attention_cuda` launches ``csrc/flash_attention.cu``: in bf16
+one block per q tile of 128 rows, head and batch row on the tensor cores
+(wgmma, with K/V tiles brought by TMA through a ring of stages and masked
+tiles never loaded); in f32 one block per q tile of 64 rows on the CUDA
+cores. Its ragged ends are masked in the kernel, so no shape is padded.
+:func:`flash_attention_plain` is the forward of ``flash_jnp.flash_attention_jnp``, chunked over q rows as
 well so that a long prefill never holds the (Sq, Skv) score matrix.
 ``kernels.ops`` picks one by the tensor's device and counts the launches.
 """
@@ -32,7 +33,8 @@ CHUNK = 128                  # q and kv rows per step of the plain version
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
-_SIGNATURES = {"flash_attention_f32": _SIG, "flash_attention_bf16": _SIG}
+_SIGNATURES = {"flash_attention_f32": _SIG, "flash_attention_bf16": _SIG,
+               "flash_attention_bf16_cuda_cores": _SIG}
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 
@@ -89,9 +91,10 @@ def flash_attention_plain(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     return out
 
 
-def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """Launch the CUDA kernel; raises for inputs it does not take."""
+def _launch(entry, q, k, v, q_pos, kv_pos, causal: bool,
+            window: Optional[int]) -> torch.Tensor:
+    """Check the inputs and run the library's ``entry``; raises for inputs
+    the kernels do not take."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: CUDA tensors required, got {q.device}")
     B, Sq, H, Dh = q.shape
@@ -108,6 +111,9 @@ def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     for t in (q, k, v):
         if not t.is_contiguous() or t.device != q.device:
             raise ValueError("flash_attention: contiguous q/k/v on one device")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError("flash_attention: bf16 q/k/v must start 16-byte "
+                             "aligned (TMA reads them)")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got {window}")
     qp = q_pos.to(torch.int32).contiguous()
@@ -117,11 +123,27 @@ def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
         raise ValueError("flash_attention: q_pos (B, Sq) and kv_pos (B, Skv) "
                          "on q's device")
     out = torch.empty_like(q)
-    fn = getattr(_build.load("flash_attention", _SIGNATURES), _ENTRY[q.dtype])
+    fn = getattr(_build.load("flash_attention", _SIGNATURES), entry)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
                 kp.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, Dh,
                 int(causal), 0 if window is None else int(window), Dh ** -0.5,
                 torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, _ENTRY[q.dtype])
+    _build.check(rc, entry)
     return out
+
+
+def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Launch the CUDA kernel; raises for inputs it does not take."""
+    return _launch(_ENTRY.get(q.dtype), q, k, v, q_pos, kv_pos, causal, window)
+
+
+def _flash_attention_cuda_cores(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                                window: Optional[int] = None) -> torch.Tensor:
+    """The earlier CUDA-core design on bf16 inputs: on no path of the port,
+    timed beside the tensor-core kernel by ``chip_smoke.py``."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention: bf16 q/k/v required, got {q.dtype}")
+    return _launch("flash_attention_bf16_cuda_cores", q, k, v, q_pos, kv_pos,
+                   causal, window)

@@ -6,10 +6,12 @@ and D (H,) f32, B and C (B, S, G, N) shared by the H // G heads of a group,
 init_state (B, H, P, N) f32 or None. Returns y in x's dtype and the final
 state (B, H, P, N) in f32.
 
-:func:`ssd_scan_cuda` launches ``csrc/ssd_scan.cu`` (one block per (b, h)
-walking its chunks in order with the state in shared memory; a ragged last
-chunk is masked in the kernel). :func:`ssd_scan_plain` is
-``ssd_jnp.ssd_chunked`` with two changes:
+:func:`ssd_scan_cuda` launches ``csrc/ssd_scan.cu``. In bf16 that is three
+chunk-parallel kernels on the tensor cores (chunk states, the state pass,
+the output; :func:`bf16_launches`), with the chunk states as f32 scratch;
+in f32 it is one block per (b, h) walking its chunks in order on the CUDA
+cores. A ragged last chunk is masked in the kernels.
+:func:`ssd_scan_plain` is ``ssd_jnp.ssd_chunked`` with two changes:
 
 - the intra-chunk exponent is masked before ``exp``
   (``exp(where(i >= j, cum_i - cum_j, -inf))``), so every factor is at
@@ -39,9 +41,13 @@ MAX_P, MAX_N, MAX_CHUNK = 64, 128, 128   # each a multiple of 32 in the kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
-_SIGNATURES = {"ssd_scan_f32": _SIG, "ssd_scan_bf16": _SIG}
-_ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
+_SIGNATURES = {
+    "ssd_scan_f32": (_P,) * 9 + (_I,) * 7 + (_P,),
+    "ssd_scan_bf16_cuda_cores": (_P,) * 9 + (_I,) * 7 + (_P,),
+    "ssd_bf16_states": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "ssd_bf16_pass": (_P,) * 4 + (_I,) * 6 + (_P,),
+    "ssd_bf16_output": (_P,) * 8 + (_I,) * 7 + (_P,),
+}
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -121,9 +127,8 @@ def ssd_decode_step(x_t, dt_t, A_log, B_t, C_t, D, state):
     return y.to(x_t.dtype), state
 
 
-def ssd_scan_cuda(x, dt, A_log, B, C, D, init_state: Optional[torch.Tensor] = None,
-                  *, chunk: int = 128):
-    """Launch the CUDA kernel; raises for inputs it does not take."""
+def _validate(x, dt, A_log, B, C, D, init_state, chunk: int) -> None:
+    """Raise for inputs the kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: CUDA tensors required, got {x.device}")
     Bb, S, H, P = x.shape
@@ -135,7 +140,8 @@ def ssd_scan_cuda(x, dt, A_log, B, C, D, init_state: Optional[torch.Tensor] = No
                          f"{tuple(dt.shape)} B {tuple(B.shape)} C "
                          f"{tuple(C.shape)} A_log {tuple(A_log.shape)} "
                          f"D {tuple(D.shape)}")
-    if x.dtype not in _ENTRY or B.dtype != x.dtype or C.dtype != x.dtype:
+    if x.dtype not in (torch.float32, torch.bfloat16) or B.dtype != x.dtype \
+            or C.dtype != x.dtype:
         raise ValueError(f"ssd_scan: f32 or bf16 x/B/C of one dtype, got "
                          f"{x.dtype} {B.dtype} {C.dtype}")
     for name, t in (("dt", dt), ("A_log", A_log), ("D", D)):
@@ -155,14 +161,86 @@ def ssd_scan_cuda(x, dt, A_log, B, C, D, init_state: Optional[torch.Tensor] = No
     for t in inputs:
         if not t.is_contiguous() or t.device != x.device:
             raise ValueError("ssd_scan: contiguous inputs on one device")
+    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd_scan: bf16 x/B/C must start 16-byte aligned "
+                         "(the kernels load rows as 16-byte vectors)")
+
+
+def _ptr(t):
+    """A tensor's data pointer for ctypes; other values (None: NULL) as they
+    are."""
+    return t.data_ptr() if isinstance(t, torch.Tensor) else t
+
+
+def bf16_launches(x, dt, A_log, B, C, D, init_state=None, *, chunk: int = 128):
+    """The bf16 scan as its three kernel launches: → ((y, final state),
+    [(name, launch), ...]). Running the launches in order on the current
+    stream fills y and the final state; :func:`ssd_scan_cuda` does that, and
+    each launch may also be timed alone."""
+    _validate(x, dt, A_log, B, C, D, init_state, chunk)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"ssd_scan: bf16_launches takes bf16 x, got {x.dtype}")
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = -(-S // chunk)
     y = torch.empty_like(x)
     final = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
-    fn = getattr(_build.load("ssd_scan", _SIGNATURES), _ENTRY[x.dtype])
+    states = torch.empty((Bb, nc, H, P, N), dtype=torch.float32, device=x.device)
+    decay = torch.empty((Bb, nc, H), dtype=torch.float32, device=x.device)
+    lib = _build.load("ssd_scan", _SIGNATURES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def launch(name, *args):
+        # the closure holds the tensors, so the scratch outlives it
+        def run():
+            with torch.cuda.device(x.device):
+                _build.check(getattr(lib, name)(*map(_ptr, args), stream), name)
+        return name, run
+
+    launches = [
+        launch("ssd_bf16_states", x, dt, A_log, B, states, decay, Bb, S, H, G, P,
+               N, chunk),
+        launch("ssd_bf16_pass", states, decay, init_state, final, Bb, S, H, P, N,
+               chunk),
+        launch("ssd_bf16_output", x, dt, A_log, B, C, D, states, y, Bb, S, H, G,
+               P, N, chunk),
+    ]
+    return (y, final), launches
+
+
+def _cuda_cores(entry, x, dt, A_log, B, C, D, init_state, chunk: int):
+    """One launch of the CUDA-core design, library entry ``entry``."""
+    _validate(x, dt, A_log, B, C, D, init_state, chunk)
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    y = torch.empty_like(x)
+    final = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    fn = getattr(_build.load("ssd_scan", _SIGNATURES), entry)
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
-                C.data_ptr(), D.data_ptr(),
-                None if init_state is None else init_state.data_ptr(),
-                y.data_ptr(), final.data_ptr(), Bb, S, H, G, P, N, chunk,
+        rc = fn(*map(_ptr, (x, dt, A_log, B, C, D, init_state, y, final)),
+                Bb, S, H, G, P, N, chunk,
                 torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, _ENTRY[x.dtype])
+    _build.check(rc, entry)
     return y, final
+
+
+def ssd_scan_cuda(x, dt, A_log, B, C, D, init_state: Optional[torch.Tensor] = None,
+                  *, chunk: int = 128):
+    """Launch the CUDA kernels; raises for inputs they do not take."""
+    if x.dtype == torch.bfloat16:
+        out, launches = bf16_launches(x, dt, A_log, B, C, D, init_state, chunk=chunk)
+        for _, run in launches:
+            run()
+        return out
+    return _cuda_cores("ssd_scan_f32", x, dt, A_log, B, C, D, init_state, chunk)
+
+
+def _ssd_scan_cuda_cores(x, dt, A_log, B, C, D,
+                         init_state: Optional[torch.Tensor] = None, *,
+                         chunk: int = 128):
+    """The earlier CUDA-core design on bf16 inputs: on no path of the port,
+    timed beside the tensor-core passes by ``chip_smoke.py``."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"ssd_scan: bf16 x required, got {x.dtype}")
+    return _cuda_cores("ssd_scan_bf16_cuda_cores", x, dt, A_log, B, C, D,
+                       init_state, chunk)

@@ -129,3 +129,70 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     """The CUDA wrapper never falls back to the plain version."""
     with pytest.raises(ValueError, match="CUDA tensors required"):
         pfa.flash_attention_cuda(*_torch(_inputs(CASES[0])), causal=True)
+
+
+def _bf16_design(q, k, v, qp, kp, *, causal, window, tile=64):
+    """The bf16 kernel's arithmetic in plain torch: f32 scores and online
+    softmax over kv tiles of 64 rows, P rounded to bf16 before P·V while l
+    sums the f32 p, f32 accumulation, the output rounded to bf16 once."""
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    qf = q.float().reshape(B, Sq, Hkv, g, Dh)
+    m = torch.full((B, Hkv, g, Sq), float("-inf"))
+    l = torch.zeros((B, Hkv, g, Sq))
+    acc = torch.zeros((B, Hkv, g, Sq, Dh))
+    for k0 in range(0, k.shape[1], tile):
+        kt, vt = k[:, k0:k0 + tile].float(), v[:, k0:k0 + tile].float()
+        ok = pfa._valid(qp, kp[:, k0:k0 + tile], causal, window)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kt) * Dh ** -0.5
+        s = torch.where(ok, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_sub = torch.where(m_new == float("-inf"), 0.0, m_new)
+        corr = torch.exp(m - m_sub)
+        p = torch.exp(s - m_sub[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.bfloat16().float(), vt)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = torch.where((qp < 0)[:, None, None, :, None], 0.0, out)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dh).bfloat16()
+
+
+@pytest.mark.parametrize("case", [
+    # B, Sq, Skv, H, Hkv, Dh, causal, window, layout
+    (1, 256, 256, 32, 8, 64, True, None, "ordered"),   # llama3.2-1b's heads
+    (1, 200, 256, 32, 8, 64, True, 100, "ring"),       # window across tiles, ring slots
+    (2, 130, 190, 16, 4, 128, True, None, "perm"),     # Dh 128, ragged, any order
+    (1, 96, 160, 32, 8, 64, False, 70, "ordered"),     # non-causal window
+])
+def test_bf16_design_within_tolerance_of_reference(case):
+    """P rounded to bf16 for P·V (the tensor-core kernel's one rounding
+    point beyond its operands) stays within the bf16 tolerance, 2e-2, of
+    the JAX reference at full head widths."""
+    B, Sq, Skv, H, Hkv, Dh, causal, win, layout = case
+    q, k, v, qp, kp = _inputs((B, Sq, Skv, H, Hkv, Dh), seed=5)
+    if layout == "ring":
+        kp = np.broadcast_to((np.arange(Skv) + 7 * Skv // 10) % Skv + 5000,
+                             (B, Skv)).astype(np.int32).copy()
+        qp = qp + 5000
+    elif layout == "perm":
+        kp = np.stack([np.random.default_rng(b).permutation(Skv) for b in range(B)]
+                      ).astype(np.int32)
+        kp[:, ::11] = -1
+    arrs = (q, k, v, qp, kp)
+    want = np.asarray(jattention_ref(*_jax(arrs, jnp.bfloat16), causal=causal,
+                                     window=win).astype(jnp.float32))
+    got = _bf16_design(*_torch(arrs, torch.bfloat16), causal=causal, window=win)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_cuda_core_design_refuses_cpu_tensors():
+    """The CUDA-core design kept as a yardstick launches or raises too."""
+    arrs = _torch(_inputs((1, 8, 8, 2, 2, 64)), torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensors required"):
+        pfa._flash_attention_cuda_cores(*arrs, causal=True)
+    with pytest.raises(ValueError, match="bf16 q/k/v required"):
+        pfa._flash_attention_cuda_cores(*(t.float() if t.is_floating_point() else t
+                                          for t in arrs), causal=True)

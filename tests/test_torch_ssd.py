@@ -167,3 +167,92 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     arrs, Q = _inputs(CASES[0])
     with pytest.raises(ValueError, match="CUDA tensors required"):
         pss.ssd_scan_cuda(*_t(arrs), chunk=Q)
+
+
+def _hi_lo(t):
+    """t as the sum of its bf16 rounding and the bf16 rounding of the rest."""
+    hi = t.bfloat16().float()
+    return hi + (t - hi).bfloat16().float()
+
+
+def _bf16_design(x, dt, A_log, B, C, D, init_state=None, *, chunk=128):
+    """The bf16 kernels' arithmetic in plain torch: x, B, C bf16 operands;
+    cum in f64; w⊙x, att and S_in each entering their products as a bf16
+    hi + lo pair; f32 accumulation; y rounded to bf16 once."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    R = H // G
+    Q = chunk
+    pad = (-S) % Q
+    xb = pss._pad_seq(x.float(), pad)
+    nc = xb.shape[1] // Q
+    xb = xb.reshape(Bb, nc, Q, G, R, P)
+    dtb = pss._pad_seq(dt.float(), pad).reshape(Bb, nc, Q, G, R)
+    Bc = pss._pad_seq(B.float(), pad).reshape(Bb, nc, Q, G, N)
+    Cc = pss._pad_seq(C.float(), pad).reshape(Bb, nc, Q, G, N)
+    A = -torch.exp(A_log.float()).reshape(G, R)
+    cum = torch.cumsum((dtb * A).double(), dim=2)
+    seg = cum[:, :, -1:]
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()[None, None, :, :, None, None]
+    diff = (cum[:, :, :, None] - cum[:, :, None]).float()
+    dec = torch.exp(torch.where(tri, diff, torch.tensor(float("-inf"))))
+    cb = torch.einsum("bcqgn,bcjgn->bcqjg", Cc, Bc)
+    att = _hi_lo(cb[..., None] * dec * dtb[:, :, None])
+    y = torch.einsum("bcqjgr,bcjgrp->bcqgrp", att, xb)
+    wx = _hi_lo(torch.exp((seg - cum).float())[..., None] * dtb[..., None] * xb)
+    s_c = torch.einsum("bcjgrp,bcjgn->bcgrpn", wx, Bc)
+    state = (torch.zeros((Bb, G, R, P, N)) if init_state is None
+             else init_state.float().reshape(Bb, G, R, P, N))
+    decay = torch.exp(seg[:, :, 0].float())
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = decay[:, c, :, :, None, None] * state + s_c[:, c]
+    s_in = _hi_lo(torch.stack(s_in, dim=1))
+    y = y + torch.einsum("bcqgn,bcgrpn->bcqgrp", Cc, s_in) \
+        * torch.exp(cum.float())[..., None]
+    y = y.reshape(Bb, nc * Q, H, P)[:, :S] + D.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), state.reshape(Bb, H, P, N)
+
+
+@pytest.mark.parametrize("S,init", [(256, False), (256, True), (200, True)])
+def test_bf16_design_within_tolerance_of_reference(S, init):
+    """At mamba2-1.3b's head widths (H 64, P 64, N 128, chunk 128, G 1) and
+    its init's decays, the tensor-core kernels' rounding points stay within
+    the bf16 tolerance, 2e-2·(1 + |y|), of the JAX sequential oracle."""
+    H, P, G, N = 64, 64, 1, 128
+    rng = np.random.default_rng(7 + S + init)
+    x = rng.standard_normal((1, S, H, P)).astype(np.float32)
+    dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), H))
+    dt_bias = dt0 + np.log(-np.expm1(-dt0))
+    dt = _softplus(rng.standard_normal((1, S, H)) + dt_bias).astype(np.float32)
+    A_log = np.log(np.arange(1, H + 1, dtype=np.float32))
+    Bm = rng.standard_normal((1, S, G, N)).astype(np.float32)
+    Cm = rng.standard_normal((1, S, G, N)).astype(np.float32)
+    D = np.ones(H, np.float32)
+    s0 = rng.standard_normal((1, H, P, N)).astype(np.float32) if init else None
+    xb, Bb, Cb = (torch.from_numpy(a).bfloat16() for a in (x, Bm, Cm))
+    yr, sr = jssd_ref(jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16),
+                      jnp.asarray(dt), jnp.asarray(A_log),
+                      jnp.asarray(Bb.float().numpy()), jnp.asarray(Cb.float().numpy()),
+                      jnp.asarray(D), None if s0 is None else jnp.asarray(s0))
+    y, s = _bf16_design(xb, torch.from_numpy(dt), torch.from_numpy(A_log), Bb, Cb,
+                        torch.from_numpy(D),
+                        None if s0 is None else torch.from_numpy(s0))
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(yr.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sr), rtol=2e-2, atol=2e-2)
+
+
+def test_cuda_launches_refuse_cpu_tensors():
+    """The bf16 launches and the CUDA-core design launch or raise too."""
+    arrs, Q = _inputs(CASES[0])
+    x, dt, A_log, Bm, Cm, D = _t(arrs)
+    with pytest.raises(ValueError, match="CUDA tensors required"):
+        pss.bf16_launches(x.bfloat16(), dt, A_log, Bm.bfloat16(), Cm.bfloat16(), D,
+                          chunk=Q)
+    with pytest.raises(ValueError, match="CUDA tensors required"):
+        pss._ssd_scan_cuda_cores(x.bfloat16(), dt, A_log, Bm.bfloat16(),
+                                 Cm.bfloat16(), D, chunk=Q)
+    with pytest.raises(ValueError, match="bf16 x required"):
+        pss._ssd_scan_cuda_cores(x, dt, A_log, Bm, Cm, D, chunk=Q)
