@@ -9,8 +9,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc per
              source, in parallel).
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the main paths' shapes and at edge cases (guard MACs bit-exact;
-             decode and flash attention at 2e-5 in f32 and 2e-2 in bf16;
+             the main paths' shapes and at edge cases (guard MACs bit-exact,
+             each call twice after a many-chunk call; decode and flash
+             attention at 2e-5 in f32 and 2e-2 in bf16, decode each call
+             twice, with fully masked splits, one split, the long cache;
              the SSD scan at 1e-4 in f32 and 2e-2 in bf16, relative and
              absolute, with mamba2-1.3b's decays).
 3. prefill — ``runtime.steps.make_prefill_step`` at full width and depth
@@ -39,9 +41,15 @@ run's inputs, launches summed over the prefill and serve phases; the flash
 and SSD rows add ``earlier_ms``, the CUDA-core design they replaced timed
 in this run, ``kernels_per_call``, the SSD's ``pass_ms`` and
 ``tensor_core_instr``, the HGMMA/HMMA instructions in the SASS of their
-bf16 kernels), the ``nvidia-smi`` line, and as the last line
-``{"ok": true, "device": {...}}``. Imports neither JAX nor the ``repro``
-package.
+bf16 kernels; the decode-attention and guard_copy rows add ``earlier_ms``
+and ``earlier_graph_ms``, the two-launch designs they replaced, ``graph_ms``,
+ms per call under CUDA-graph replay (outputs checked against the eager
+calls bit for bit), and ``kernels_per_call`` from ``torch.profiler``
+(must be 1); decode attention adds ``at_full_cache``, 16 layer caches of
+(8, 1024, 8, 64) called in turn, and ``at_long_cache``, one (8, 16384, 8,
+64) cache, both cold in L2; guard_copy adds ``at_64MiB``), the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
+Imports neither JAX nor the ``repro`` package.
 """
 from __future__ import annotations
 
@@ -81,6 +89,54 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(calls, reps=10):
+    """Capture ``calls`` (functions of no argument, one kernel call each) in
+    one CUDA graph after an eager warm-up on the capture stream (which makes
+    the kernels' workspaces), replay it ``reps`` times between CUDA events,
+    and check that the replay's outputs equal the eager ones bit for bit.
+    → ms per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = [fn() for fn in calls]
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [fn() for fn in calls]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    for want, got in zip(eager, outs):
+        for w, g in zip(*(x if isinstance(x, tuple) else (x,) for x in (want, got))):
+            check(torch.equal(w.view(torch.int32) if w.dtype == torch.uint32 else w,
+                              g.view(torch.int32) if g.dtype == torch.uint32 else g),
+                  "a CUDA graph replay differs from the eager call")
+    del graph, outs
+    return start.elapsed_time(end) / (reps * len(calls))
+
+
+def kernels_per_call(fn, n=10):
+    """Device kernels per call of ``fn``, counted by ``torch.profiler`` over
+    ``n`` calls (copies and memsets aside)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith(("Memcpy", "Memset")))
+    return kernels / n
 
 
 def bound(nbytes, ops, kind):
@@ -123,22 +179,26 @@ def _word(t):
 
 
 def phase_kernels():
-    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import mpk_guard as mg
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     tag = SEED & 0xFFFFFFFF
     err = {}
 
-    # guard_copy + the streaming MAC: rows 0, 1, 7, 256, 65536 and 64 MiB
-    for rows in (0, 1, 7, 256, 65536, (64 << 20) // 512):
-        p = _u32(rows, gen)
+    # guard_copy + the streaming MAC: rows 0, 1, 7, 63, 64, 65, 256, 65536 and
+    # 64 MiB, after a call of many chunks has used the arrival counter; each
+    # call twice (the counter is back at 0), the earlier two-pass kernel too
+    big = _u32((64 << 20) // 512, gen)
+    mg.guard_copy_cuda(big, tag, 0)
+    for rows in (0, 1, 7, 63, 64, 65, 256, 65536, (64 << 20) // 512):
+        p = big[:rows]
         want = _word(mg.guard_copy_plain(p, tag, 0)[1])
-        copy, mac, ok = mg.guard_copy_cuda(p, tag, want)
-        check(_word(mac) == want and _word(ok) == 1,
-              f"guard_copy rows={rows}: mac {_word(mac)} != plain {want}")
-        check(torch.equal(copy.view(torch.int32), p.view(torch.int32)),
-              f"guard_copy rows={rows}: copy differs")
+        for guard in (mg.guard_copy_cuda, mg.guard_copy_cuda, mg._guard_copy_two_pass):
+            copy, mac, ok = guard(p, tag, want)
+            check(_word(mac) == want and _word(ok) == 1,
+                  f"{guard.__name__} rows={rows}: mac {_word(mac)} != plain {want}")
+            check(torch.equal(copy.view(torch.int32), p.view(torch.int32)),
+                  f"{guard.__name__} rows={rows}: copy differs")
         if rows:
             bad = p.clone()
             bad.view(torch.int32)[rows // 2, 77] ^= 1 << (rows % 32)
@@ -159,6 +219,10 @@ def phase_kernels():
         fin = mg.mac_finalize_cuda(h)
         check(_word(fin) == _word(mg.mac_finalize_plain(h)) == want,
               f"split mac_update rows={rows} != one-shot MAC")
+    refuses(lambda: mg.guard_copy_cuda(big.view(torch.int32).view(-1)[1:129]
+                                       .view(torch.uint32).view(1, 128), tag, 0),
+            "guard_copy")
+    del big
     err.update(guard_copy=0, mac_init_state=0, mac_update=0, mac_finalize=0)
 
     # mac_batch: N = 16 frames with rows 1..64 (and 0)
@@ -170,39 +234,82 @@ def phase_kernels():
               f"mac_batch rows={rows} differs from plain")
     err["mac_batch"] = 0
 
-    # decode attention at the serving shapes, window and ring positions
-    worst = 0.0
-    cases = [(8, 1024, 32, 8, 64, None, False), (8, 1024, 32, 8, 64, 256, False),
-             (4, 1000, 32, 8, 64, 128, True), (2, 77, 16, 2, 128, None, False),
-             (3, 300, 8, 1, 128, 32, False)]
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for B, S, H, Hkv, Dh, win, ring in cases:
-            q = torch.randn((B, 1, H, Dh), generator=gen, device="cuda").to(dtype)
-            k = torch.randn((B, S, Hkv, Dh), generator=gen, device="cuda").to(dtype)
-            v = torch.randn((B, S, Hkv, Dh), generator=gen, device="cuda").to(dtype)
-            ar = torch.arange(S, device="cuda")
-            if ring:      # slots hold absolute positions out of order
-                kp = ((ar + 7 * S // 10) % S + 5000)[None].expand(B, S)
-                qp = torch.full((B, 1), 5000 + S - 1, device="cuda")
-            else:
-                lens = torch.tensor([S - 37 * b for b in range(B)], device="cuda")
-                kp = torch.where(ar[None] < lens[:, None], ar[None], -1)
-                qp = (lens - 1)[:, None]
-            kp = kp.to(torch.int32).contiguous()
-            qp = qp.to(torch.int32)
-            want = da.decode_attention_plain(q, k, v, qp, kp, window=win)
-            got = da.decode_attention_cuda(q, k, v, qp, kp, window=win)
-            e = (got.float() - want.float()).abs().max().item()
-            check(e <= tol, f"decode_attention {dtype} {(B, S, H, Hkv, Dh, win, ring)}:"
-                            f" max err {e} > {tol}")
-            worst = max(worst, e) if dtype == torch.bfloat16 else worst
-    err["decode_attention"] = worst
+    err["decode_attention"] = check_decode(gen)
     err["flash_attention"] = check_flash(gen)
     err["ssd_scan"] = check_ssd(gen)
     frames_on_card_match_cpu()
     torch.cuda.synchronize()
     emit(phase="kernels", ok=True, max_abs_err=err)
     return err
+
+def decode_inputs(gen, B, S, H, Hkv, Dh, dtype, layout="lens", lens=None):
+    """Random q/k/v and positions: "lens" fills the first lens[b] slots of
+    row b (slot = position, the rest -1), "ring" holds absolute positions
+    from 5000 rotated through the slots, as a ring cache does."""
+    q = torch.randn((B, 1, H, Dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=gen, device="cuda").to(dtype)
+    ar = torch.arange(S, device="cuda")
+    if layout == "ring":
+        kp = ((ar + 7 * S // 10) % S + 5000)[None].expand(B, S)
+        qp = torch.full((B, 1), 5000 + S - 1, device="cuda")
+    else:
+        lens = torch.tensor(lens if lens is not None else
+                            [max(1, S - 37 * b) for b in range(B)], device="cuda")
+        kp = torch.where(ar[None] < lens[:, None], ar[None], -1)
+        qp = (lens - 1).clamp(min=0)[:, None]
+    return q, k, v, qp.to(torch.int32), kp.to(torch.int32).contiguous()
+
+
+def check_decode(gen):
+    """The one-launch decode kernel against its plain version in f32 (2e-5)
+    and bf16 (2e-2): the serving shapes, a window, ring positions, S off the
+    64-row tile, Dh 128 with one kv head; several splits with the later ones
+    fully masked; B·Hkv large enough for one split; the (8, 16384) long
+    cache. Each call twice on the same inputs (identical: the arrival
+    counters are back at 0), and the earlier two-launch design checked too.
+    → the worst bf16 error."""
+    from repro_torch.kernels import decode_attention as da
+    cases = [  # B, S, H, Hkv, Dh, window, layout, lens, n_split (None: any)
+        (8, 1024, 32, 8, 64, None, "lens", None, None),
+        (8, 1024, 32, 8, 64, 256, "lens", None, None),
+        (4, 1000, 32, 8, 64, 128, "ring", None, None),
+        (2, 77, 16, 2, 128, None, "lens", None, None),
+        (3, 300, 8, 1, 128, 32, "lens", None, None),
+        (2, 4096, 8, 2, 64, None, "lens", [1000, 3], ">1"),
+        (3, 700, 12, 4, 64, None, "lens", [0, 1, 700], None),
+        (64, 1024, 32, 8, 64, None, "lens", None, "1"),
+        (8, 16384, 32, 8, 64, None, "lens", [16384] * 8, ">1"),
+    ]
+    worst = 0.0
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for B, S, H, Hkv, Dh, win, layout, lens, splits in cases:
+            case = (B, S, H, Hkv, Dh, win, layout, str(dtype))
+            q, k, v, qp, kp = decode_inputs(gen, B, S, H, Hkv, Dh, dtype, layout, lens)
+            n_split = da.split_plan(B, S, Hkv, da._slots(0, dtype, Dh, H // Hkv))[1]
+            check(splits is None or (n_split > 1 if splits == ">1" else n_split == 1),
+                  f"decode_attention {case}: the plan has {n_split} splits")
+            want = da.decode_attention_plain(q, k, v, qp, kp, window=win)
+            got = da.decode_attention_cuda(q, k, v, qp, kp, window=win)
+            again = da.decode_attention_cuda(q, k, v, qp, kp, window=win)
+            earlier = da._decode_attention_split_merge(q, k, v, qp, kp, window=win)
+            e = (got.float() - want.float()).abs().max().item()
+            check(e <= tol, f"decode_attention {case}: max err {e} > {tol}")
+            check(torch.equal(got, again), f"decode_attention {case}: a second call differs")
+            check((earlier.float() - want.float()).abs().max().item() <= tol,
+                  f"the earlier decode design {case}: over tolerance")
+            if lens is not None and 0 in lens:
+                check(got[lens.index(0)].abs().max().item() == 0.0,
+                      f"decode_attention {case}: a row with no valid slot is not 0")
+            if dtype == torch.bfloat16:
+                worst = max(worst, e)
+            del q, k, v, want, got, again, earlier
+    q, k, v, qp, kp = decode_inputs(gen, 2, 128, 8, 2, 64, torch.bfloat16)
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = misaligned(args[i])
+        refuses(lambda: da.decode_attention_cuda(*args, qp, kp), "decode_attention")
+    return worst
 
 
 def flash_inputs(gen, B, Sq, Skv, H, Hkv, Dh, dtype, tail=3, layout="ordered"):
@@ -659,7 +766,6 @@ def phase_prefill_parity(cfg, B=2, S=160, S_dec=16):
 # ---------------------------------------------------------------------------
 
 def kernels_line(cfg, launches, err, attn_inputs):
-    import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import mpk_guard as mg
     from repro_torch.models import kvcache
@@ -671,23 +777,38 @@ def kernels_line(cfg, launches, err, attn_inputs):
     def row(name, source, replaces, *args, **extra):
         rows.append(_row(name, source, replaces, launches, err, *args, **extra))
 
-    def guard_times(n):
+    def guard_times(n, calls):
+        """guard_copy on n rows: eager, plain, copy_, the earlier two-pass
+        kernel, graph replay of ``calls`` calls, kernels per call."""
         p = _u32(n, gen)
         want = _word(mg.guard_copy_plain(p, tag, 0)[1])
         dst = torch.empty_like(p)
         it = 200 if n < 4096 else 50
-        return (cuda_ms(lambda: mg.guard_copy_cuda(p, tag, want), it),
-                cuda_ms(lambda: mg.guard_copy_plain(p, tag, want), max(5, it // 10)),
-                cuda_ms(lambda: dst.copy_(p), it), 2 * n * 512 + 12, 2 * n * 128)
+        kpc = kernels_per_call(lambda: mg.guard_copy_cuda(p, tag, want))
+        check(kpc == 1, f"guard_copy on {n} rows: {kpc} kernels per call")
+        return dict(ms=cuda_ms(lambda: mg.guard_copy_cuda(p, tag, want), it),
+                    plain_ms=cuda_ms(lambda: mg.guard_copy_plain(p, tag, want),
+                                     max(5, it // 10)),
+                    library_ms=cuda_ms(lambda: dst.copy_(p), it),
+                    earlier_ms=cuda_ms(lambda: mg._guard_copy_two_pass(p, tag, want), it),
+                    graph_ms=graph_ms([lambda: mg.guard_copy_cuda(p, tag, want)] * calls),
+                    earlier_graph_ms=graph_ms(
+                        [lambda: mg._guard_copy_two_pass(p, tag, want)] * calls),
+                    kernels_per_call=kpc,
+                    earlier_kernels_per_call=kernels_per_call(
+                        lambda: mg._guard_copy_two_pass(p, tag, want)),
+                    nbytes=2 * n * 512 + 12, ops=2 * n * 128)
 
     # guard_copy: a request / response payload is one 512-byte row
-    ms, pms, lib, nb, nops = guard_times(1)
-    big = guard_times((64 << 20) // 512)
-    bb, bby = bound(big[3], big[4], "fp32")
+    one = guard_times(1, 20)
+    big = guard_times((64 << 20) // 512, 4)
+    bb, bby = bound(big.pop("nbytes"), big.pop("ops"), "fp32")
     row("guard_copy", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:93",
-        "(1, 128) uint32", ms, pms, nb, nops, "fp32", lib,
-        at_64MiB=dict(ms=big[0], plain_ms=big[1], library_ms=big[2],
-                      bound_ms=bb, bound_by=bby))
+        "(1, 128) uint32", one["ms"], one["plain_ms"], one["nbytes"], one["ops"],
+        "fp32", one["library_ms"], earlier_ms=one["earlier_ms"], graph_ms=one["graph_ms"],
+        earlier_graph_ms=one["earlier_graph_ms"], kernels_per_call=one["kernels_per_call"],
+        earlier_kernels_per_call=one["earlier_kernels_per_call"],
+        at_64MiB=dict(big, bound_ms=bb, bound_by=bby))
 
     # mac_batch: the batch envelope's 8 one-row frames
     st = torch.stack([_u32(1, gen).view(torch.int32) for _ in range(8)]
@@ -731,27 +852,85 @@ def kernels_line(cfg, launches, err, attn_inputs):
     valid = int((kp >= 0).sum())
     nbytes = 2 * valid * Hkv * Dh * k.element_size() + 2 * q.numel() * 2 \
         + kp.numel() * 4 + B * 4
-    mask = (kp >= 0)[:, None, None, :]
     serve_err = (da.decode_attention_cuda(q, k, v, qp, kp).float()
                  - da.decode_attention_plain(q, k, v, qp, kp).float()).abs().max().item()
     check(serve_err <= 2e-2, f"decode_attention on the serving cache: {serve_err}")
     err = dict(err, decode_attention=max(err["decode_attention"], serve_err))
-    qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=True), 200)
+    kpc = kernels_per_call(lambda: da.decode_attention_cuda(q, k, v, qp, kp))
+    check(kpc == 1, f"decode_attention: {kpc} kernels per call")
     row("decode_attention", "decode_attention.cu",
         "src/repro/kernels/decode_attention.py:71",
         f"q ({B}, 1, {H}, {Dh}) bf16, cache ({B}, {S}, {Hkv}, {Dh}), "
         f"{valid} valid rows", cuda_ms(lambda: da.decode_attention_cuda(
             q, k, v, qp, kp), 200),
         cuda_ms(lambda: da.decode_attention_plain(q, k, v, qp, kp), 50),
-        nbytes, 4 * H * Dh * valid, "bf16", lib,
-        valid_rows=valid)
+        nbytes, 4 * H * Dh * valid, "bf16", sdpa_ms([(q, k, v, kp)], 200),
+        valid_rows=valid,
+        earlier_ms=cuda_ms(lambda: da._decode_attention_split_merge(q, k, v, qp, kp), 200),
+        graph_ms=graph_ms([lambda: da.decode_attention_cuda(q, k, v, qp, kp)] * 16),
+        earlier_graph_ms=graph_ms(
+            [lambda: da._decode_attention_split_merge(q, k, v, qp, kp)] * 16),
+        kernels_per_call=kpc,
+        earlier_kernels_per_call=kernels_per_call(
+            lambda: da._decode_attention_split_merge(q, k, v, qp, kp)),
+        split_plan=da.split_plan(B, S, Hkv, da._slots(0, q.dtype, Dh, H // Hkv)),
+        at_full_cache=decode_at(gen, B, 1024, H, Hkv, Dh, layers=cfg.num_layers),
+        at_long_cache=decode_at(gen, B, 16384, H, Hkv, Dh, layers=1))
     del q, k, v, attn_inputs
     torch.cuda.empty_cache()
     rows.append(flash_row(gen, launches, err))
     rows.append(ssd_row(gen, launches, err))
     return rows
+
+
+def sdpa_ms(caches, iters):
+    """ms per call of PyTorch's scaled_dot_product_attention (bool mask from
+    kv_pos >= 0, enable_gqa) over ``caches`` [(q, k, v, kv_pos)] in turn."""
+    import torch.nn.functional as F
+    args = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+             (kp >= 0)[:, None, None, :]) for q, k, v, kp in caches]
+
+    def run():
+        for qs, ks, vs, mask in args:
+            F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    return cuda_ms(run, iters) / len(caches)
+
+
+def decode_at(gen, B, S, H, Hkv, Dh, layers):
+    """Decode attention over ``layers`` distinct (B, S, Hkv, Dh) bf16 caches
+    with every row valid, called in turn as a decode tick calls its layers:
+    with 16 layers of (8, 1024, 8, 64) (268 MB) or one (8, 16384, 8, 64)
+    cache (268 MB) each call finds its cache cold in L2. Eager, graph replay
+    (one capture of a pass over the layers), the earlier design, SDPA, the
+    byte bound; the first layer against the plain version (2e-2)."""
+    from repro_torch.kernels import decode_attention as da
+    q = torch.randn((B, 1, H, Dh), generator=gen, device="cuda").to(torch.bfloat16)
+    caches = [tuple(torch.randn((B, S, Hkv, Dh), generator=gen, device="cuda")
+                    .to(torch.bfloat16) for _ in range(2)) for _ in range(layers)]
+    kp = torch.arange(S, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
+    qp = torch.full((B, 1), S - 1, dtype=torch.int32, device="cuda")
+    k0, v0 = caches[0]
+    e = (da.decode_attention_cuda(q, k0, v0, qp, kp).float()
+         - da.decode_attention_plain(q, k0, v0, qp, kp).float()).abs().max().item()
+    check(e <= 2e-2, f"decode_attention at ({B}, {S}): max err {e}")
+    calls = [lambda k=k, v=v: da.decode_attention_cuda(q, k, v, qp, kp) for k, v in caches]
+    earlier = [lambda k=k, v=v: da._decode_attention_split_merge(q, k, v, qp, kp)
+               for k, v in caches]
+    per_pass = 32 // layers              # 32 calls: 2 passes over 16 layers, or 32 calls
+    calls, earlier = calls * per_pass, earlier * per_pass
+    b_ms, by = bound(2 * B * S * Hkv * Dh * 2 + 2 * q.numel() * 2 + kp.numel() * 4 + B * 4,
+                     4 * H * Dh * B * S, "bf16")
+    out = dict(shape=f"q ({B}, 1, {H}, {Dh}) bf16 over {layers} x ({B}, {S}, {Hkv}, {Dh})"
+                     f" bf16 caches, every row valid, in turn",
+               ms=cuda_ms(lambda: [c() for c in calls], 10) / len(calls),
+               graph_ms=graph_ms(calls),
+               earlier_ms=cuda_ms(lambda: [c() for c in earlier], 3) / len(earlier),
+               bound_ms=b_ms, bound_by=by, max_abs_err=e,
+               split_plan=da.split_plan(B, S, Hkv, da._slots(0, torch.bfloat16, Dh, H // Hkv)),
+               library_ms=sdpa_ms([(q, k, v, kp) for k, v in caches], 5))
+    del caches
+    torch.cuda.empty_cache()
+    return out
 
 
 def _row(name, source, replaces, launches, err, shape, ms, plain_ms, nbytes,

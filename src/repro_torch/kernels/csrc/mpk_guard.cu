@@ -17,17 +17,30 @@
 // Design. The Pallas grid carries one Horner state across row tiles in
 // order; blocks on a GPU run in no order, so that schedule is not carried
 // over. The closed form above is linear in the rows, so each block takes a
-// chunk of rows, runs Horner over it per lane (128 threads, one lane each,
-// one coalesced 512-byte row per step) and scales its partial by
+// chunk of rows, runs Horner over it per lane and scales its partial by
 // P^(rows after the chunk) with square-and-multiply. Partials combine by
-// wrapping uint32 adds, which are associative: a second small kernel sums
-// them in a fixed order and adds the seed term h0·P^n once, so the result
-// is bit-exact. For the folded MACs each block folds its lanes before
-// writing (the fold is linear too), so the second pass sums one word per
-// chunk. guard_copy writes each row as it reads it. A zero-row payload
-// launches only the second kernel, which returns the fold of h0 (or h
-// itself for mac_update); rows are never padded, since padding would change
+// wrapping uint32 adds, which are associative and commutative, so the
+// result is bit-exact under any schedule; the seed term h0·P^n is added
+// once. For the folded MACs each block folds its lanes before writing (the
+// fold is linear too). Rows are never padded, since padding would change
 // the MAC.
+//
+// guard_copy (guard_copy_fused, one launch): a 128-thread block per chunk
+// of 128 rows, a warp per 512-byte row and 4 lanes per thread, so every
+// load and store is 16 bytes; each warp walks its quarter of the chunk,
+// loading 8 rows ahead of its Horner steps and writing the copy as it goes.
+// (Measured on the H100 at 64 MiB: a software-pipelined loop, 8 warps a
+// block, chunks of 256-2048 rows, or the chunk staged through shared memory
+// by cp.async.bulk and written back by a bulk store were none faster.)
+// A payload of one chunk (the one-row frames of the main path, and the
+// zero-row ones) is finished by its block: MAC, seed term, ok. Otherwise
+// each block writes its folded word, fences and counts itself in an
+// arrival counter; the last block sums the words, adds the seed term,
+// writes mac and ok and resets the counter to 0 for the next call or graph
+// replay. mac_batch and mac_update keep the two-launch form (folded_chunks
+// or lane_chunks, then a finishing kernel), as does the earlier guard_copy
+// (mpk_guard_copy_two_pass: one thread per lane, 4-byte accesses), kept on
+// no path as chip_smoke.py's yardstick.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -86,6 +99,96 @@ __device__ __forceinline__ uint32_t chunk_partial(
     }
   }
   return acc * pow32(kPrime, (unsigned long long)(n - r1));
+}
+
+// (Σ_{e<128} P^e) mod 2^32: folds a state whose 128 lanes are equal.
+constexpr uint32_t fold_sum(int e, uint32_t p, uint32_t s) {
+  return e == kLanes ? s : fold_sum(e + 1, p * kPrime, s + p);
+}
+constexpr uint32_t kFoldSum = fold_sum(0, 1u, 0u);
+
+constexpr int kGuardThreads = 128;   // 4 warps, one 512-byte row per warp step
+constexpr int kAhead = 8;            // rows a thread loads before its Horner steps
+
+__device__ __forceinline__ void horner4(uint4& a, const uint4& x) {
+  a.x = a.x * kPrime + x.x;
+  a.y = a.y * kPrime + x.y;
+  a.z = a.z * kPrime + x.z;
+  a.w = a.w * kPrime + x.w;
+}
+
+// Copy rows [r0, r1) of this thread's 4 lanes (16 bytes at column t; the
+// payload is read and written once, so both bypass the caches' keep
+// policy: ld/st .cs) and return Σ_r Σ_i x_{r,4t+i}·P^(n-1-r)·P^(127-4t-i), its share of the folded
+// MAC.
+__device__ __forceinline__ uint32_t quad_partial(const uint4* __restrict__ in,
+                                                 uint4* __restrict__ out, long long r0,
+                                                 long long r1, long long n, int t) {
+  uint4 a = make_uint4(0u, 0u, 0u, 0u);
+  long long r = r0;
+  for (; r + kAhead <= r1; r += kAhead) {
+    uint4 x[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) x[i] = __ldcs(in + (r + i) * 32 + t);
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      __stcs(out + (r + i) * 32 + t, x[i]);
+      horner4(a, x[i]);
+    }
+  }
+  for (; r < r1; ++r) {
+    const uint4 x = __ldcs(in + r * 32 + t);
+    __stcs(out + r * 32 + t, x);
+    horner4(a, x);
+  }
+  // fold the 4 lanes (lane 4t+3 has the lowest power) and scale to the end
+  const uint32_t w = ((a.x * kPrime + a.y) * kPrime + a.z) * kPrime + a.w;
+  return w * pow32(kPrime, (unsigned long long)(124 - 4 * t) +
+                               (unsigned long long)(n - r1));
+}
+
+// One block per chunk of `chunk` rows (one block for zero rows).
+__global__ void __launch_bounds__(kGuardThreads) guard_copy_fused(
+    const uint4* __restrict__ in, uint4* __restrict__ out,
+    uint32_t* __restrict__ partials, int* __restrict__ counter, long long rows,
+    long long chunk, uint32_t tag, uint32_t expected, uint32_t* __restrict__ mac_ok) {
+  __shared__ uint32_t red[4];
+  __shared__ int last;
+  const long long c = blockIdx.x;
+  const long long r0 = c * chunk;
+  const long long r1 = min(rows, r0 + chunk);
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const long long per_warp = (chunk + 3) / 4;
+  const long long w0 = min(r1, r0 + warp * per_warp);
+  const long long w1 = min(r1, w0 + per_warp);
+  uint32_t s = block_sum(quad_partial(in, out, w0, w1, rows, t), red);
+  const uint32_t seed = (kInit + tag) * pow32(kPrime, (unsigned long long)rows) * kFoldSum;
+  if (gridDim.x == 1) {
+    if (threadIdx.x == 0) {
+      s += seed;
+      mac_ok[0] = s;
+      mac_ok[1] = s == expected ? 1u : 0u;
+    }
+    return;
+  }
+  if (threadIdx.x == 0) {
+    partials[c] = s;
+    __threadfence();
+    last = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  s = 0u;
+  for (long long i = threadIdx.x; i < gridDim.x; i += kGuardThreads) s += __ldcg(partials + i);
+  __syncthreads();                      // red is reused
+  s = block_sum(s, red);
+  if (threadIdx.x == 0) {
+    s += seed;
+    mac_ok[0] = s;
+    mac_ok[1] = s == expected ? 1u : 0u;
+    *counter = 0;
+  }
 }
 
 // One block per (chunk, frame): the folded partial of the chunk.
@@ -166,11 +269,26 @@ long long n_chunks(long long rows, long long chunk) {
 
 extern "C" {
 
-// payload (rows, 128) → copy (rows, 128), mac (1,), ok (1,).
-// partials: max(1, ceil(rows / chunk)) words of scratch.
-int mpk_guard_copy(const void* payload, void* copy, void* partials, void* mac,
-                   void* ok, long long rows, long long chunk, unsigned tag,
+// payload (rows, 128) → copy (rows, 128), mac_ok (2,) = {mac, ok}, in one
+// launch; payload and copy 16-byte aligned. partials: max(1, ceil(rows /
+// chunk)) words of scratch; counter: one int32, 0 on entry and on exit.
+int mpk_guard_copy(const void* payload, void* copy, void* partials, void* counter,
+                   void* mac_ok, long long rows, long long chunk, unsigned tag,
                    unsigned expected, void* stream) {
+  const long long nc = rows > 0 ? n_chunks(rows, chunk) : 1;
+  guard_copy_fused<<<(unsigned)nc, kGuardThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(payload), static_cast<uint4*>(copy),
+      static_cast<uint32_t*>(partials), static_cast<int*>(counter), rows, chunk, tag,
+      expected, static_cast<uint32_t*>(mac_ok));
+  return (int)cudaGetLastError();
+}
+
+// The earlier two-launch guard_copy (folded_chunks, then folded_finish):
+// payload (rows, 128) → copy, mac (1,), ok (1,); partials: max(1, ceil(rows
+// / chunk)) words. Not on any path of the port: chip_smoke.py's yardstick.
+int mpk_guard_copy_two_pass(const void* payload, void* copy, void* partials, void* mac,
+                            void* ok, long long rows, long long chunk, unsigned tag,
+                            unsigned expected, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nc = n_chunks(rows, chunk);
   if (nc > 0)

@@ -5,7 +5,8 @@ a 128-lane Horner MAC (``h = h·P + row``, h0 = INIT + tag) that is folded
 to one uint32 word by Σ h_i·P^(127-i):
 
 * :func:`guard_copy_cuda` — the receive-side protected copy: copies the
-  payload and computes its MAC in the same pass, ``ok = mac == expected``;
+  payload and computes its MAC in the same pass, ``ok = mac == expected``,
+  in one launch (its partials and arrival counter live in ``workspace``);
 * :func:`mac_batch_cuda` — N frames of equal row count MAC'd in one launch;
 * :func:`mac_init_state_cuda` / :func:`mac_update_cuda` /
   :func:`mac_finalize_cuda` — the streaming form: an explicit (128,) state
@@ -16,6 +17,8 @@ current stream (it raises for anything the kernel does not take); each
 ``*_plain`` function is the same computation in plain PyTorch (int64 with
 32-bit masking, see ``ref``). ``kernels.ops`` picks one by the tensor's
 device and counts the launches. Tags and expected MACs are Python ints.
+:func:`_guard_copy_two_pass` is the earlier two-launch ``guard_copy``, kept
+only as a yardstick for ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -25,15 +28,18 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
+from repro_torch.kernels import workspace
 from repro_torch.kernels.ref import LANES, MAC_INIT, MASK32
 
-CHUNK_ROWS = 64        # payload rows per CUDA block
+CHUNK_ROWS = 64        # payload rows per CUDA block (mac_batch, mac_update)
+GUARD_CHUNK_ROWS = 128  # payload rows per CUDA block of guard_copy
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _U32 = ctypes.c_uint32
 _SIGNATURES = {
     "mpk_guard_copy": (_P, _P, _P, _P, _P, _I64, _I64, _U32, _U32, _P),
+    "mpk_guard_copy_two_pass": (_P, _P, _P, _P, _P, _I64, _I64, _U32, _U32, _P),
     "mpk_mac_batch": (_P, _P, _P, _I64, _I64, _I64, _U32, _P),
     "mpk_mac_update": (_P, _P, _P, _P, _I64, _I64, _P),
     "mpk_mac_init": (_P, _U32, _P),
@@ -86,19 +92,52 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _check_rows(t: torch.Tensor, ndim: int, what: str) -> None:
-    if (t.device.type != "cuda" or t.dtype != torch.uint32 or t.ndim != ndim
+    if (not t.is_cuda or t.dtype != torch.uint32 or t.ndim != ndim
             or t.shape[-1] != LANES or not t.is_contiguous()):
         raise ValueError(f"{what}: needs a contiguous CUDA uint32 tensor of "
                          f"{ndim} dims with {LANES} lanes, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def _n_chunks(rows: int) -> int:
-    return -(-rows // CHUNK_ROWS)
+    return _cdiv(rows, CHUNK_ROWS)
 
 
 def guard_copy_cuda(payload_u32: torch.Tensor, tag: int, expected_mac: int):
-    """(copy, mac (1,) uint32, ok (1,) int32) from one kernel pass."""
+    """(copy, mac (1,) uint32, ok (1,) int32) from one kernel launch; the
+    payload must start 16-byte aligned. ``mac`` and ``ok`` are views of one
+    two-word buffer."""
+    _check_rows(payload_u32, 2, "guard_copy")
+    src = payload_u32.data_ptr()
+    if src % 16:
+        raise ValueError("guard_copy: the payload must start 16-byte aligned")
+    rows = payload_u32.shape[0]
+    dev = payload_u32.get_device()
+    stream = workspace.current_stream(dev)
+    counter, partials = workspace.scratch(
+        "guard_copy", dev, stream, counters=1, nbytes=4 * _cdiv(rows, GUARD_CHUNK_ROWS))
+    copy = torch.empty_like(payload_u32)
+    mac_ok = torch.empty(2, dtype=torch.int32, device=payload_u32.device)
+    args = (src, copy.data_ptr(), partials, counter, mac_ok.data_ptr(),
+            rows, GUARD_CHUNK_ROWS, tag & MASK32, expected_mac & MASK32, stream)
+    if dev == torch.cuda.current_device():
+        rc = _lib().mpk_guard_copy(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = _lib().mpk_guard_copy(*args)
+    _build.check(rc, "mpk_guard_copy")
+    mac, ok = mac_ok.split(1)
+    return copy, mac.view(torch.uint32), ok
+
+
+def _guard_copy_two_pass(payload_u32: torch.Tensor, tag: int, expected_mac: int):
+    """The earlier two-launch guard_copy (one thread per lane, 4-byte
+    accesses, a second launch for the sum). No path of the port calls it:
+    ``chip_smoke.py`` times it as the yardstick ``earlier_ms``."""
     _check_rows(payload_u32, 2, "guard_copy")
     rows = payload_u32.shape[0]
     dev = payload_u32.device
@@ -107,11 +146,11 @@ def guard_copy_cuda(payload_u32: torch.Tensor, tag: int, expected_mac: int):
     mac = torch.empty(1, dtype=torch.uint32, device=dev)
     ok = torch.empty(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().mpk_guard_copy(
+        rc = _lib().mpk_guard_copy_two_pass(
             payload_u32.data_ptr(), copy.data_ptr(), partials.data_ptr(),
             mac.data_ptr(), ok.data_ptr(), rows, CHUNK_ROWS, tag & MASK32,
             expected_mac & MASK32, _stream(payload_u32))
-    _build.check(rc, "mpk_guard_copy")
+    _build.check(rc, "mpk_guard_copy_two_pass")
     return copy, mac, ok
 
 

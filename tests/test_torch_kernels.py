@@ -149,11 +149,28 @@ def test_cpu_calls_count_no_launches():
 
 
 @pytest.mark.parametrize("B,S,Hkv", [(8, 1024, 8), (1, 64, 1), (3, 1000, 2),
-                                     (64, 128, 8), (1, 1, 1)])
-def test_split_plan_covers_the_cache(B, S, Hkv):
-    split_len, n_split = pda.split_plan(B, S, Hkv)
-    assert split_len % pda.ROWS_PER_BLOCK_STEP == 0
+                                     (64, 128, 8), (1, 1, 1), (8, 16384, 8),
+                                     (64, 1024, 8), (1, 131072, 1), (2, 4096, 2),
+                                     (1, 1 << 22, 1)])
+@pytest.mark.parametrize("slots", [pda.TARGET_BLOCKS, 264, 132])
+def test_split_plan_covers_the_cache(B, S, Hkv, slots):
+    """Whole tiles, every row in exactly one split, within the kernel's
+    limits; one wave of blocks when the cache is long enough to fill it,
+    and one split when B·Hkv alone fills the card."""
+    split_len, n_split = pda.split_plan(B, S, Hkv, slots)
+    assert split_len % pda.TILE_ROWS == 0
+    assert split_len <= pda.MAX_TILES * pda.TILE_ROWS and n_split <= pda.MAX_SPLITS
     assert (n_split - 1) * split_len < S <= n_split * split_len
+    tiles = -(-S // pda.TILE_ROWS)
+    if B * Hkv >= slots:
+        assert n_split == -(-tiles // pda.MAX_TILES)
+    elif tiles >= slots:            # as few tiles a split as one wave allows
+        want = max(min(slots // (B * Hkv), -(-tiles // pda.MIN_SPLIT_TILES)),
+                   -(-tiles // pda.MAX_TILES))
+        assert split_len == pda.TILE_ROWS * -(-tiles // want)
+        assert B * Hkv * n_split <= max(slots, B * Hkv * -(-tiles // pda.MAX_TILES))
+    if n_split > 1:
+        assert split_len >= pda.MIN_SPLIT_TILES * pda.TILE_ROWS
 
 
 # -- decode attention -------------------------------------------------------------
