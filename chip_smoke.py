@@ -10,11 +10,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              source, in parallel).
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the main paths' shapes and at edge cases (guard MACs bit-exact,
-             each call twice after a many-chunk call; decode and flash
-             attention at 2e-5 in f32 and 2e-2 in bf16, decode each call
-             twice, with fully masked splits, one split, the long cache;
-             the SSD scan at 1e-4 in f32 and 2e-2 in bf16, relative and
-             absolute, with mamba2-1.3b's decays).
+             each call twice after calls of many chunks, mac_batch at
+             many-chunk shapes too, misaligned payloads refused; decode and
+             flash attention at 2e-5 in f32 and 2e-2 in bf16, decode each
+             call twice, with fully masked splits, one split, the long
+             cache; the SSD scan at 1e-4 in f32 and 2e-2 in bf16, relative
+             and absolute, with mamba2-1.3b's decays).
 3. prefill — ``runtime.steps.make_prefill_step`` at full width and depth
              (bf16, random weights from a seeded generator), 4 prompts of
              2048 tokens, for llama3.2-1b and mamba2-1.3b: ms per prefill,
@@ -41,13 +42,16 @@ run's inputs, launches summed over the prefill and serve phases; the flash
 and SSD rows add ``earlier_ms``, the CUDA-core design they replaced timed
 in this run, ``kernels_per_call``, the SSD's ``pass_ms`` and
 ``tensor_core_instr``, the HGMMA/HMMA instructions in the SASS of their
-bf16 kernels; the decode-attention and guard_copy rows add ``earlier_ms``
-and ``earlier_graph_ms``, the two-launch designs they replaced, ``graph_ms``,
-ms per call under CUDA-graph replay (outputs checked against the eager
-calls bit for bit), and ``kernels_per_call`` from ``torch.profiler``
-(must be 1); decode attention adds ``at_full_cache``, 16 layer caches of
-(8, 1024, 8, 64) called in turn, and ``at_long_cache``, one (8, 16384, 8,
-64) cache, both cold in L2; guard_copy adds ``at_64MiB``), the
+bf16 kernels; the decode-attention, guard_copy, mac_batch and mac_update
+rows add ``earlier_ms`` and ``earlier_graph_ms``, the two-launch designs
+they replaced, ``graph_ms``, ms per call under CUDA-graph replay (outputs
+checked against the eager calls bit for bit), and ``kernels_per_call``
+from ``torch.profiler`` (must be 1); decode attention adds
+``at_full_cache``, 16 layer caches of (8, 1024, 8, 64) called in turn, and
+``at_long_cache``, one (8, 16384, 8, 64) cache, both cold in L2;
+guard_copy adds ``at_64MiB``; mac_update ``at_65536_rows`` and mac_batch
+``at_32MiB``, 4 distinct 32 MiB inputs called in turn, cold in L2, eager
+and under graph replay), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device": {...}}``.
 Imports neither JAX nor the ``repro`` package.
 """
@@ -123,20 +127,24 @@ def graph_ms(calls, reps=10):
     return start.elapsed_time(end) / (reps * len(calls))
 
 
-def kernels_per_call(fn, n=10):
+def kernels_per_call(fn, n=10, windows=2):
     """Device kernels per call of ``fn``, counted by ``torch.profiler`` over
-    ``n`` calls (copies and memsets aside)."""
+    ``n`` calls (copies and memsets aside): the larger count of ``windows``
+    profiled windows, since the profiler now and then misses one kernel of
+    a window (19 of 20 seen once) and can never count one that did not run."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = sum(e.count for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.startswith(("Memcpy", "Memset")))
-    return kernels / n
+    counts = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.key.startswith(("Memcpy", "Memset"))))
+    return max(counts) / n
 
 
 def bound(nbytes, ops, kind):
@@ -178,18 +186,47 @@ def _word(t):
     return int(t.cpu().tolist()[0])
 
 
+def _stack(frames, rows, gen):
+    """Random (frames, rows, 128) uint32 words."""
+    return _u32(frames * rows, gen).view(frames, rows, 128)
+
+
+def _same(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def phase_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    err = check_guard_macs(gen)
+    err["decode_attention"] = check_decode(gen)
+    err["flash_attention"] = check_flash(gen)
+    err["ssd_scan"] = check_ssd(gen)
+    frames_on_card_match_cpu()
+    torch.cuda.synchronize()
+    emit(phase="kernels", ok=True, max_abs_err=err)
+    return err
+
+
+def check_guard_macs(gen):
+    """The guard MAC family bit for bit against the plain versions, after
+    calls of many chunks have used the arrival counters, each call twice
+    (the counters are back at 0) and the earlier two-pass kernels too:
+    guard_copy and mac_update at rows 0, 1, 7, 63, 64, 65, 256, 65536 and
+    64 MiB (mac_update one-shot and over three splits chained from
+    mac_init_state, ending in mac_finalize); mac_batch at 16 frames of 0 to
+    64 rows (one chunk) and of 65, 256, 1024 and 5000 rows, and 200 frames
+    of 700 rows (many chunks, one counter a frame); misaligned payloads
+    refused. → max_abs_err 0 for each."""
     from repro_torch.kernels import mpk_guard as mg
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
     tag = SEED & 0xFFFFFFFF
-    err = {}
-
-    # guard_copy + the streaming MAC: rows 0, 1, 7, 63, 64, 65, 256, 65536 and
-    # 64 MiB, after a call of many chunks has used the arrival counter; each
-    # call twice (the counter is back at 0), the earlier two-pass kernel too
     big = _u32((64 << 20) // 512, gen)
+    h0 = mg.mac_init_state_cuda(tag, "cuda")
+    check(_same(h0, mg.mac_init_state_plain(tag, "cuda")), "mac_init_state differs from plain")
     mg.guard_copy_cuda(big, tag, 0)
+    mg.mac_update_cuda(h0, big)
+    mg.mac_batch_cuda(big.view(8, -1, 128), tag)
+    updates = (mg.mac_update_cuda, mg.mac_update_cuda, mg._mac_update_two_pass)
     for rows in (0, 1, 7, 63, 64, 65, 256, 65536, (64 << 20) // 512):
         p = big[:rows]
         want = _word(mg.guard_copy_plain(p, tag, 0)[1])
@@ -206,41 +243,35 @@ def phase_kernels():
                   f"guard_copy rows={rows}: tampered payload accepted")
         check(_word(mg.guard_copy_cuda(p, tag ^ 1, want)[2]) == 0,
               f"guard_copy rows={rows}: wrong tag accepted")
-        h = mg.mac_init_state_cuda(tag, "cuda")
-        check(torch.equal(h.view(torch.int32),
-                          mg.mac_init_state_plain(tag, "cuda").view(torch.int32)),
-              "mac_init_state differs from plain")
+        whole = mg.mac_update_plain(h0, p)
+        for update in updates:
+            check(_same(update(h0, p), whole), f"{update.__name__} rows={rows} differs from plain")
+        h = h0
         for a, b in ((0, rows // 3), (rows // 3, rows // 3), (rows // 3, rows)):
-            h2 = mg.mac_update_cuda(h, p[a:b])
-            check(torch.equal(h2.view(torch.int32),
-                              mg.mac_update_plain(h, p[a:b]).view(torch.int32)),
-                  f"mac_update rows {a}:{b} differs from plain")
-            h = h2
+            step = mg.mac_update_plain(h, p[a:b])
+            for update in updates:
+                check(_same(update(h, p[a:b]), step),
+                      f"{update.__name__} rows {a}:{b} of {rows} differs from plain")
+            h = step
+        check(_same(h, whole), f"split mac_update rows={rows} != one-shot")
         fin = mg.mac_finalize_cuda(h)
         check(_word(fin) == _word(mg.mac_finalize_plain(h)) == want,
               f"split mac_update rows={rows} != one-shot MAC")
-    refuses(lambda: mg.guard_copy_cuda(big.view(torch.int32).view(-1)[1:129]
-                                       .view(torch.uint32).view(1, 128), tag, 0),
-            "guard_copy")
+
+    cases = [(16, rows) for rows in (0, 1, 2, 7, 33, 64, 65, 256, 1024, 5000)] + [(200, 700)]
+    for frames, rows in cases:
+        st = _stack(frames, rows, gen)
+        want = mg.mac_batch_plain(st, tag)
+        for batch in (mg.mac_batch_cuda, mg.mac_batch_cuda, mg._mac_batch_two_pass):
+            check(_same(batch(st, tag), want),
+                  f"{batch.__name__} ({frames}, {rows}) differs from plain")
+    refuses(lambda: mg.guard_copy_cuda(misaligned(big[:1]), tag, 0), "guard_copy")
+    refuses(lambda: mg.mac_update_cuda(h0, misaligned(big[:300])), "mac_update")
+    refuses(lambda: mg.mac_batch_cuda(misaligned(big[:600]).view(2, 300, 128), tag),
+            "mac_batch")
     del big
-    err.update(guard_copy=0, mac_init_state=0, mac_update=0, mac_finalize=0)
-
-    # mac_batch: N = 16 frames with rows 1..64 (and 0)
-    for rows in (0, 1, 2, 7, 33, 64):
-        st = torch.stack([_u32(rows, gen).view(torch.int32) for _ in range(16)]
-                         ).view(torch.uint32)
-        got = mg.mac_batch_cuda(st, tag).cpu().tolist()
-        check(got == mg.mac_batch_plain(st, tag).cpu().tolist(),
-              f"mac_batch rows={rows} differs from plain")
-    err["mac_batch"] = 0
-
-    err["decode_attention"] = check_decode(gen)
-    err["flash_attention"] = check_flash(gen)
-    err["ssd_scan"] = check_ssd(gen)
-    frames_on_card_match_cpu()
-    torch.cuda.synchronize()
-    emit(phase="kernels", ok=True, max_abs_err=err)
-    return err
+    return dict.fromkeys(("guard_copy", "mac_init_state", "mac_update", "mac_finalize",
+                          "mac_batch"), 0)
 
 def decode_inputs(gen, B, S, H, Hkv, Dh, dtype, layout="lens", lens=None):
     """Random q/k/v and positions: "lens" fills the first lens[b] slots of
@@ -339,8 +370,8 @@ def flash_inputs(gen, B, Sq, Skv, H, Hkv, Dh, dtype, tail=3, layout="ordered"):
 
 
 def misaligned(t):
-    """A contiguous copy of ``t`` whose start is 2 bytes off 16-byte
-    alignment."""
+    """A contiguous copy of ``t`` whose start is one element (2 bytes in
+    bf16, 4 in uint32) off 16-byte alignment."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     view = buf[1:].view(t.shape)
     view.copy_(t)
@@ -777,26 +808,29 @@ def kernels_line(cfg, launches, err, attn_inputs):
     def row(name, source, replaces, *args, **extra):
         rows.append(_row(name, source, replaces, launches, err, *args, **extra))
 
+    def launch_times(name, kernel, earlier, calls=20, it=200):
+        """A one-launch kernel and the two-launch design it replaced: eager
+        (``it`` calls), graph replay of ``calls`` calls, kernels per call
+        (must be 1)."""
+        kpc = kernels_per_call(kernel)
+        check(kpc == 1, f"{name}: {kpc} kernels per call")
+        return dict(earlier_ms=cuda_ms(earlier, it), graph_ms=graph_ms([kernel] * calls),
+                    earlier_graph_ms=graph_ms([earlier] * calls), kernels_per_call=kpc,
+                    earlier_kernels_per_call=kernels_per_call(earlier))
+
     def guard_times(n, calls):
-        """guard_copy on n rows: eager, plain, copy_, the earlier two-pass
-        kernel, graph replay of ``calls`` calls, kernels per call."""
+        """guard_copy on n rows: eager, plain, copy_, and launch_times."""
         p = _u32(n, gen)
         want = _word(mg.guard_copy_plain(p, tag, 0)[1])
         dst = torch.empty_like(p)
         it = 200 if n < 4096 else 50
-        kpc = kernels_per_call(lambda: mg.guard_copy_cuda(p, tag, want))
-        check(kpc == 1, f"guard_copy on {n} rows: {kpc} kernels per call")
         return dict(ms=cuda_ms(lambda: mg.guard_copy_cuda(p, tag, want), it),
                     plain_ms=cuda_ms(lambda: mg.guard_copy_plain(p, tag, want),
                                      max(5, it // 10)),
                     library_ms=cuda_ms(lambda: dst.copy_(p), it),
-                    earlier_ms=cuda_ms(lambda: mg._guard_copy_two_pass(p, tag, want), it),
-                    graph_ms=graph_ms([lambda: mg.guard_copy_cuda(p, tag, want)] * calls),
-                    earlier_graph_ms=graph_ms(
-                        [lambda: mg._guard_copy_two_pass(p, tag, want)] * calls),
-                    kernels_per_call=kpc,
-                    earlier_kernels_per_call=kernels_per_call(
-                        lambda: mg._guard_copy_two_pass(p, tag, want)),
+                    **launch_times(f"guard_copy on {n} rows",
+                                   lambda: mg.guard_copy_cuda(p, tag, want),
+                                   lambda: mg._guard_copy_two_pass(p, tag, want), calls, it),
                     nbytes=2 * n * 512 + 12, ops=2 * n * 128)
 
     # guard_copy: a request / response payload is one 512-byte row
@@ -810,16 +844,36 @@ def kernels_line(cfg, launches, err, attn_inputs):
         earlier_kernels_per_call=one["earlier_kernels_per_call"],
         at_64MiB=dict(big, bound_ms=bb, bound_by=bby))
 
+    def cold_times(kernel, earlier, plain, inputs, nbytes, ops):
+        """``kernel``, ``earlier`` and ``plain`` over 4 distinct 32 MiB
+        inputs called in turn (each call finds its input cold in L2), eager
+        and (``graph_ms``) two passes replayed from one CUDA graph; the
+        first input's result against the plain version."""
+        check(_same(kernel(*inputs[0]), plain(*inputs[0])),
+              f"{kernel.__name__} at 32 MiB differs from plain")
+        b, by = bound(nbytes, ops, "fp32")
+        turn = [lambda x=x: kernel(*x) for x in inputs] * 2
+        earlier_turn = [lambda x=x: earlier(*x) for x in inputs] * 2
+        return dict(ms=cold_ms(kernel, inputs, 20), earlier_ms=cold_ms(earlier, inputs, 20),
+                    graph_ms=graph_ms(turn), earlier_graph_ms=graph_ms(earlier_turn),
+                    plain_ms=cold_ms(plain, inputs, 1), bound_ms=b, bound_by=by)
+
     # mac_batch: the batch envelope's 8 one-row frames
-    st = torch.stack([_u32(1, gen).view(torch.int32) for _ in range(8)]
-                     ).view(torch.uint32)
-    check(torch.equal(mg.mac_batch_cuda(st, tag).view(torch.int32).cpu(),
-                      mg.mac_batch_plain(st, tag).view(torch.int32).cpu()),
+    st = _stack(8, 1, gen)
+    check(_same(mg.mac_batch_cuda(st, tag), mg.mac_batch_plain(st, tag)),
           "mac_batch at the envelope's shape differs from plain")
+    stacks = [(_stack(64, 1024, gen), tag) for _ in range(4)]
     row("mac_batch", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:153",
         "(8, 1, 128) uint32", cuda_ms(lambda: mg.mac_batch_cuda(st, tag), 200),
         cuda_ms(lambda: mg.mac_batch_plain(st, tag), 20), 8 * 512 + 32,
-        2 * 8 * 128, "fp32", None)
+        2 * 8 * 128, "fp32", None,
+        **launch_times("mac_batch", lambda: mg.mac_batch_cuda(st, tag),
+                       lambda: mg._mac_batch_two_pass(st, tag)),
+        at_32MiB=dict(shape="4 distinct (64, 1024, 128) uint32 stacks in turn, cold in L2",
+                      **cold_times(mg.mac_batch_cuda, mg._mac_batch_two_pass,
+                                   mg.mac_batch_plain, stacks, 64 * 1024 * 512 + 64 * 4,
+                                   2 * 64 * 1024 * 128)))
+    del stacks
 
     # the streaming seal of a one-row frame: init, update, finalize
     h = mg.mac_init_state_cuda(tag, "cuda")
@@ -829,15 +883,18 @@ def kernels_line(cfg, launches, err, attn_inputs):
         cuda_ms(lambda: mg.mac_init_state_plain(tag, "cuda"), 50), 512, 128,
         "fp32", cuda_ms(lambda: torch.full((128,), 7, dtype=torch.int32,
                                            device="cuda"), 200))
-    big_blk = _u32(65536, gen)
+    blocks = [(h, _u32(65536, gen)) for _ in range(4)]
     row("mac_update", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:241",
         "(1, 128) uint32 block", cuda_ms(lambda: mg.mac_update_cuda(h, blk), 200),
         cuda_ms(lambda: mg.mac_update_plain(h, blk), 50), 3 * 512, 2 * 128,
         "fp32", None,
-        at_65536_rows=dict(
-            ms=cuda_ms(lambda: mg.mac_update_cuda(h, big_blk), 50),
-            plain_ms=cuda_ms(lambda: mg.mac_update_plain(h, big_blk), 5),
-            bound_ms=bound(65536 * 512, 2 * 65536 * 128, "fp32")[0]))
+        **launch_times("mac_update", lambda: mg.mac_update_cuda(h, blk),
+                       lambda: mg._mac_update_two_pass(h, blk)),
+        at_65536_rows=dict(shape="4 distinct (65536, 128) uint32 blocks in turn, cold in L2",
+                           **cold_times(mg.mac_update_cuda, mg._mac_update_two_pass,
+                                        mg.mac_update_plain, blocks, 65536 * 512 + 2 * 512,
+                                        2 * 65536 * 128)))
+    del blocks
     row("mac_finalize", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:271",
         "(128,) uint32", cuda_ms(lambda: mg.mac_finalize_cuda(h), 200),
         cuda_ms(lambda: mg.mac_finalize_plain(h), 50), 516, 2 * 128, "fp32", None)
@@ -894,6 +951,13 @@ def sdpa_ms(caches, iters):
         for qs, ks, vs, mask in args:
             F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
     return cuda_ms(run, iters) / len(caches)
+
+
+def cold_ms(fn, inputs, iters):
+    """ms per call of ``fn`` over ``inputs`` (argument tuples) called in
+    turn, ``iters`` passes (CUDA events)."""
+    calls = [lambda x=x: fn(*x) for x in inputs]
+    return cuda_ms(lambda: [c() for c in calls], iters) / len(calls)
 
 
 def decode_at(gen, B, S, H, Hkv, Dh, layers):

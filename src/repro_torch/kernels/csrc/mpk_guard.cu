@@ -37,10 +37,39 @@
 // each block writes its folded word, fences and counts itself in an
 // arrival counter; the last block sums the words, adds the seed term,
 // writes mac and ok and resets the counter to 0 for the next call or graph
-// replay. mac_batch and mac_update keep the two-launch form (folded_chunks
-// or lane_chunks, then a finishing kernel), as does the earlier guard_copy
-// (mpk_guard_copy_two_pass: one thread per lane, 4-byte accesses), kept on
-// no path as chip_smoke.py's yardstick.
+// replay.
+//
+// mac_update (mac_update_fused) and mac_batch (mac_batch_fused), one launch
+// each, in the same layout: a thread owns 4 lanes (16-byte loads, .cs), a
+// warp one 512-byte row, and the W warps of a block split its chunk of
+// rows into W runs, each loading 8 rows ahead of its Horner steps. Chunks
+// are 256 rows and W is one warp per 8 rows of a chunk, 4 to 16
+// (MAC_CHUNK_ROWS, mac_threads in kernels/mpk_guard.py): the best of
+// chunks 64-1024 x 128-512 threads in a sweep on the H100 at 32 MiB, cold
+// in L2 (launch/mac_sweep.py; PERF.md), where one-row calls also ran
+// faster with 4 warps than with 16. In probes, loading 16 rows ahead, ld.nc
+// or an L2 prefetch hint moved nothing by more than the spread.
+// mac_update returns the 128-lane state, so its blocks keep unfolded
+// per-lane partials: each warp's run scaled by P^(rows after it), summed
+// per lane over the warps through shared memory. A call of one chunk (the
+// main path's one-row frames; zero rows return the state) writes h·P^m +
+// partial itself. Otherwise each block adds its 128 words into a 128-word
+// accumulator with wrapping atomics (bit-exact in any order), fences and
+// counts itself; the last block takes the accumulator with atomicExch,
+// leaving it 0, adds h·P^m and resets the counter. The accumulator sits
+// beside the counter in the workspace's zeroed words. In a probe on the
+// H100 at 65,536 rows, per-chunk partials summed in parallel by the last
+// block (16 warps over the chunks, 8 loads in flight) left a tail that the
+// atomics, which arrive spread over the run, did not.
+// mac_batch's grid is (chunk, frame); each block folds its lanes before
+// writing one word (the fold is linear too), a frame of one chunk is
+// finished by its block with the folded seed term, and a frame of many has
+// its own arrival counter, whose last block sums the frame's words.
+// The earlier designs stay, on no path of the port, as chip_smoke.py's
+// yardsticks: mpk_guard_copy_two_pass, mpk_mac_update_two_pass and
+// mpk_mac_batch_two_pass (one thread per lane, 4-byte accesses, 64-row
+// chunks, and a second launch that sums the partials, serially per lane
+// in lane_finish).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,14 +93,17 @@ __device__ __forceinline__ uint32_t fold_power(int lane) {
   return pow32(kPrime, (unsigned long long)(kLanes - 1 - lane));
 }
 
-// Wrapping sum of one uint32 per thread over a 128-thread block; the
-// result is valid in thread 0.
+// Wrapping sum of one uint32 per thread over the block (red: a word per
+// warp); the result is valid in thread 0.
 __device__ __forceinline__ uint32_t block_sum(uint32_t v, uint32_t* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  return red[0] + red[1] + red[2] + red[3];
+  uint32_t s = 0u;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
+  return s;
 }
 
 // Σ_{r in [r0, r1)} x_{r,lane}·P^(n-1-r) for this thread's lane; copies the
@@ -191,6 +223,131 @@ __global__ void __launch_bounds__(kGuardThreads) guard_copy_fused(
   }
 }
 
+constexpr int kMacMaxThreads = 512;  // mac_update / mac_batch blocks: 4-16 warps
+constexpr int kMacMaxWarps = kMacMaxThreads / 32;
+
+// Horner over rows [r0, r1) of this thread's 4 lanes (16 bytes at column
+// t, read once: ld.cs), kAhead rows loaded ahead of their steps:
+// a_i = Σ_r x_{r,4t+i}·P^(r1-1-r).
+__device__ __forceinline__ uint4 quad_horner(const uint4* __restrict__ in, long long r0,
+                                             long long r1, int t) {
+  uint4 a = make_uint4(0u, 0u, 0u, 0u);
+  long long r = r0;
+  for (; r + kAhead <= r1; r += kAhead) {
+    uint4 x[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) x[i] = __ldcs(in + (r + i) * 32 + t);
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) horner4(a, x[i]);
+  }
+  for (; r < r1; ++r) horner4(a, __ldcs(in + r * 32 + t));
+  return a;
+}
+
+// The run of rows [w0, w1) that warp `warp` of the block takes from chunk
+// c: the chunk split into blockDim.x / 32 runs of equal length.
+struct Run {
+  long long w0, w1;
+};
+__device__ __forceinline__ Run warp_run(long long c, long long chunk, long long rows) {
+  const long long warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const long long r0 = c * chunk;
+  const long long r1 = min(rows, r0 + chunk);
+  const long long per_warp = (chunk + warps - 1) / warps;
+  const long long w0 = min(r1, r0 + warp * per_warp);
+  return {w0, min(r1, w0 + per_warp)};
+}
+
+// Per-lane wrapping sum of the warps' uint4 in red (warp w's thread t at
+// red[32 w + t]): the value of lane threadIdx.x, for threads 0..127.
+__device__ __forceinline__ uint32_t lane_sum(const uint4* red) {
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(red);
+  uint32_t s = 0u;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += words[w * kLanes + threadIdx.x];
+  return s;
+}
+
+// One block per chunk of `chunk` rows (one block for zero rows); out_l =
+// h_l·P^rows + Σ_r x_{r,l}·P^(rows-1-r). counters: the arrival counter,
+// then the 128-word accumulator of the chunks' per-lane partials, all 0 on
+// entry and on exit.
+__global__ void __launch_bounds__(kMacMaxThreads) mac_update_fused(
+    const uint32_t* __restrict__ h, const uint4* __restrict__ in,
+    uint32_t* __restrict__ counters, long long rows, long long chunk,
+    uint32_t* __restrict__ out) {
+  __shared__ uint4 red[kMacMaxWarps][32];
+  __shared__ int last;
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const bool lane_thread = threadIdx.x < kLanes;
+  const long long nc = gridDim.x;
+  const Run run = warp_run(blockIdx.x, chunk, rows);
+  uint4 a = quad_horner(in, run.w0, run.w1, t);
+  const uint32_t scale = pow32(kPrime, (unsigned long long)(rows - run.w1));
+  a.x *= scale;
+  a.y *= scale;
+  a.z *= scale;
+  a.w *= scale;
+  red[warp][t] = a;
+  __syncthreads();
+  const uint32_t s = lane_thread ? lane_sum(&red[0][0]) : 0u;
+  const uint32_t seed = lane_thread ? h[threadIdx.x] * pow32(kPrime, (unsigned long long)rows) : 0u;
+  if (nc == 1) {
+    if (lane_thread) out[threadIdx.x] = seed + s;
+    return;
+  }
+  uint32_t* acc = counters + 1;
+  if (lane_thread) atomicAdd(acc + threadIdx.x, s);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(reinterpret_cast<int*>(counters), 1) == (int)nc - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (lane_thread) out[threadIdx.x] = seed + atomicExch(acc + threadIdx.x, 0u);
+  if (threadIdx.x == 0) counters[0] = 0u;
+}
+
+// Grid (chunk, frame); frames are `rows` apart. macs[f] = the folded MAC of
+// frame f seeded with INIT + tag. partials: gridDim.x words a frame;
+// counters: one a frame.
+__global__ void __launch_bounds__(kMacMaxThreads) mac_batch_fused(
+    const uint4* __restrict__ in, uint32_t* __restrict__ partials,
+    int* __restrict__ counters, long long rows, long long chunk, uint32_t tag,
+    uint32_t* __restrict__ macs) {
+  __shared__ uint32_t red[kMacMaxWarps];
+  __shared__ int last;
+  const int t = threadIdx.x & 31;
+  const long long c = blockIdx.x, nc = gridDim.x, f = blockIdx.y;
+  const Run run = warp_run(c, chunk, rows);
+  const uint4 a = quad_horner(in + f * rows * 32, run.w0, run.w1, t);
+  // fold the 4 lanes (lane 4t+3 has the lowest power) and scale to the end
+  const uint32_t w = ((a.x * kPrime + a.y) * kPrime + a.z) * kPrime + a.w;
+  uint32_t s = block_sum(
+      w * pow32(kPrime, (unsigned long long)(124 - 4 * t) + (unsigned long long)(rows - run.w1)),
+      red);
+  const uint32_t seed = (kInit + tag) * pow32(kPrime, (unsigned long long)rows) * kFoldSum;
+  if (nc == 1) {
+    if (threadIdx.x == 0) macs[f] = s + seed;
+    return;
+  }
+  if (threadIdx.x == 0) {
+    partials[f * nc + c] = s;
+    __threadfence();
+    last = atomicAdd(counters + f, 1) == (int)nc - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  s = 0u;
+  for (long long i = threadIdx.x; i < nc; i += blockDim.x) s += __ldcg(partials + f * nc + i);
+  __syncthreads();                      // red is reused
+  s = block_sum(s, red);
+  if (threadIdx.x == 0) {
+    macs[f] = s + seed;
+    counters[f] = 0;
+  }
+}
+
 // One block per (chunk, frame): the folded partial of the chunk.
 // frames are `rows` apart; guard_copy passes out != nullptr (one frame).
 __global__ void __launch_bounds__(kLanes) folded_chunks(
@@ -265,6 +422,10 @@ long long n_chunks(long long rows, long long chunk) {
   return (rows + chunk - 1) / chunk;
 }
 
+bool mac_launch_ok(long long chunk, int threads) {
+  return chunk >= 1 && threads >= kLanes && threads <= kMacMaxThreads && threads % 32 == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -301,11 +462,41 @@ int mpk_guard_copy_two_pass(const void* payload, void* copy, void* partials, voi
   return (int)cudaGetLastError();
 }
 
-// stack (frames, rows, 128) → macs (frames,).
-// partials: max(1, frames * ceil(rows / chunk)) words of scratch.
-int mpk_mac_batch(const void* stack, void* partials, void* macs,
-                  long long frames, long long rows, long long chunk,
+// stack (frames, rows, 128) → macs (frames,), one launch; the stack 16-byte
+// aligned. partials: frames * max(1, ceil(rows / chunk)) words of scratch;
+// counters: `frames` int32, 0 on entry and on exit. threads: 128..512, a
+// multiple of 32.
+int mpk_mac_batch(const void* stack, void* partials, void* counters, void* macs,
+                  long long frames, long long rows, long long chunk, int threads,
                   unsigned tag, void* stream) {
+  if (!mac_launch_ok(chunk, threads) || frames < 1 || frames > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long nc = rows > 0 ? n_chunks(rows, chunk) : 1;
+  mac_batch_fused<<<dim3((unsigned)nc, (unsigned)frames), threads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(stack), static_cast<uint32_t*>(partials),
+      static_cast<int*>(counters), rows, chunk, tag, static_cast<uint32_t*>(macs));
+  return (int)cudaGetLastError();
+}
+
+// state h (128,), block (rows, 128) → out (128,), one launch; the block
+// 16-byte aligned. counters: 1 + 128 words, 0 on entry and on exit.
+int mpk_mac_update(const void* h, const void* block, void* counters, void* out,
+                   long long rows, long long chunk, int threads, void* stream) {
+  if (!mac_launch_ok(chunk, threads)) return (int)cudaErrorInvalidValue;
+  const long long nc = rows > 0 ? n_chunks(rows, chunk) : 1;
+  mac_update_fused<<<(unsigned)nc, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(h), static_cast<const uint4*>(block),
+      static_cast<uint32_t*>(counters), rows, chunk, static_cast<uint32_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The earlier two-launch mac_batch (folded_chunks, then folded_finish):
+// partials: max(1, frames * ceil(rows / chunk)) words. chip_smoke.py's
+// yardstick only.
+int mpk_mac_batch_two_pass(const void* stack, void* partials, void* macs,
+                           long long frames, long long rows, long long chunk,
+                           unsigned tag, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nc = n_chunks(rows, chunk);
   if (nc > 0)
@@ -318,10 +509,11 @@ int mpk_mac_batch(const void* stack, void* partials, void* macs,
   return (int)cudaGetLastError();
 }
 
-// state h (128,), block (rows, 128) → out (128,).
-// partials: max(1, ceil(rows / chunk)) * 128 words of scratch.
-int mpk_mac_update(const void* h, const void* block, void* partials, void* out,
-                   long long rows, long long chunk, void* stream) {
+// The earlier two-launch mac_update (lane_chunks, then lane_finish):
+// partials: max(1, ceil(rows / chunk)) * 128 words. chip_smoke.py's
+// yardstick only.
+int mpk_mac_update_two_pass(const void* h, const void* block, void* partials, void* out,
+                            long long rows, long long chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nc = n_chunks(rows, chunk);
   if (nc > 0)

@@ -5,20 +5,27 @@ a 128-lane Horner MAC (``h = h·P + row``, h0 = INIT + tag) that is folded
 to one uint32 word by Σ h_i·P^(127-i):
 
 * :func:`guard_copy_cuda` — the receive-side protected copy: copies the
-  payload and computes its MAC in the same pass, ``ok = mac == expected``,
-  in one launch (its partials and arrival counter live in ``workspace``);
-* :func:`mac_batch_cuda` — N frames of equal row count MAC'd in one launch;
+  payload and computes its MAC in the same pass, ``ok = mac == expected``;
+* :func:`mac_batch_cuda` — N frames of equal row count MAC'd together;
 * :func:`mac_init_state_cuda` / :func:`mac_update_cuda` /
   :func:`mac_finalize_cuda` — the streaming form: an explicit (128,) state
   advanced block by block, so any split of a payload gives the one-shot MAC.
+
+``guard_copy``, ``mac_batch`` and ``mac_update`` are one launch a call:
+their blocks read the payload in 16-byte pieces, and where a call spans
+many blocks the last one to arrive merges the partials (which, with the
+arrival counters, live in ``workspace``; so the rule of that module holds:
+call each once eagerly at a shape before capturing it in a CUDA graph).
+Their payloads must start 16-byte aligned and be contiguous.
 
 Each ``*_cuda`` function launches the kernel of ``csrc/mpk_guard.cu`` on the
 current stream (it raises for anything the kernel does not take); each
 ``*_plain`` function is the same computation in plain PyTorch (int64 with
 32-bit masking, see ``ref``). ``kernels.ops`` picks one by the tensor's
 device and counts the launches. Tags and expected MACs are Python ints.
-:func:`_guard_copy_two_pass` is the earlier two-launch ``guard_copy``, kept
-only as a yardstick for ``chip_smoke.py``.
+:func:`_guard_copy_two_pass`, :func:`_mac_batch_two_pass` and
+:func:`_mac_update_two_pass` are the earlier two-launch designs, kept only
+as yardsticks for ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -31,17 +38,22 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import workspace
 from repro_torch.kernels.ref import LANES, MAC_INIT, MASK32
 
-CHUNK_ROWS = 64        # payload rows per CUDA block (mac_batch, mac_update)
 GUARD_CHUNK_ROWS = 128  # payload rows per CUDA block of guard_copy
+MAC_CHUNK_ROWS = 256    # payload rows per CUDA block of mac_batch / mac_update
+MAC_THREADS = 512       # most threads per block of mac_batch / mac_update
+TWO_PASS_CHUNK_ROWS = 64  # rows per block of the earlier two-launch designs
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _U32 = ctypes.c_uint32
+_INT = ctypes.c_int
 _SIGNATURES = {
     "mpk_guard_copy": (_P, _P, _P, _P, _P, _I64, _I64, _U32, _U32, _P),
     "mpk_guard_copy_two_pass": (_P, _P, _P, _P, _P, _I64, _I64, _U32, _U32, _P),
-    "mpk_mac_batch": (_P, _P, _P, _I64, _I64, _I64, _U32, _P),
-    "mpk_mac_update": (_P, _P, _P, _P, _I64, _I64, _P),
+    "mpk_mac_batch": (_P, _P, _P, _P, _I64, _I64, _I64, _INT, _U32, _P),
+    "mpk_mac_batch_two_pass": (_P, _P, _P, _I64, _I64, _I64, _U32, _P),
+    "mpk_mac_update": (_P, _P, _P, _P, _I64, _I64, _INT, _P),
+    "mpk_mac_update_two_pass": (_P, _P, _P, _P, _I64, _I64, _P),
     "mpk_mac_init": (_P, _U32, _P),
     "mpk_mac_finalize": (_P, _P, _P),
 }
@@ -103,8 +115,30 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _n_chunks(rows: int) -> int:
-    return _cdiv(rows, CHUNK_ROWS)
+def _aligned(t: torch.Tensor, what: str) -> int:
+    """The data pointer of ``t``, which must start 16-byte aligned."""
+    ptr = t.data_ptr()
+    if ptr % 16:
+        raise ValueError(f"{what}: the payload must start 16-byte aligned")
+    return ptr
+
+
+def mac_threads(rows: int, chunk: int = None, most: int = None) -> int:
+    """Threads per block of mac_batch / mac_update for ``rows`` rows a
+    frame: a warp per 8 rows of a chunk, from 4 warps (a one-row call) to
+    ``most`` // 32 (``MAC_THREADS``; chunks of ``MAC_CHUNK_ROWS``)."""
+    chunk = MAC_CHUNK_ROWS if chunk is None else chunk
+    most = MAC_THREADS if most is None else most
+    return 32 * min(most // 32, max(4, _cdiv(min(rows, chunk), 8)))
+
+
+def _launch(dev: int, fn, *args) -> int:
+    """``fn(*args)`` with ``dev`` the current device (entered only when it
+    is not already)."""
+    if dev == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
 def guard_copy_cuda(payload_u32: torch.Tensor, tag: int, expected_mac: int):
@@ -112,9 +146,7 @@ def guard_copy_cuda(payload_u32: torch.Tensor, tag: int, expected_mac: int):
     payload must start 16-byte aligned. ``mac`` and ``ok`` are views of one
     two-word buffer."""
     _check_rows(payload_u32, 2, "guard_copy")
-    src = payload_u32.data_ptr()
-    if src % 16:
-        raise ValueError("guard_copy: the payload must start 16-byte aligned")
+    src = _aligned(payload_u32, "guard_copy")
     rows = payload_u32.shape[0]
     dev = payload_u32.get_device()
     stream = workspace.current_stream(dev)
@@ -122,13 +154,9 @@ def guard_copy_cuda(payload_u32: torch.Tensor, tag: int, expected_mac: int):
         "guard_copy", dev, stream, counters=1, nbytes=4 * _cdiv(rows, GUARD_CHUNK_ROWS))
     copy = torch.empty_like(payload_u32)
     mac_ok = torch.empty(2, dtype=torch.int32, device=payload_u32.device)
-    args = (src, copy.data_ptr(), partials, counter, mac_ok.data_ptr(),
-            rows, GUARD_CHUNK_ROWS, tag & MASK32, expected_mac & MASK32, stream)
-    if dev == torch.cuda.current_device():
-        rc = _lib().mpk_guard_copy(*args)
-    else:
-        with torch.cuda.device(dev):
-            rc = _lib().mpk_guard_copy(*args)
+    rc = _launch(dev, _lib().mpk_guard_copy, src, copy.data_ptr(), partials, counter,
+                 mac_ok.data_ptr(), rows, GUARD_CHUNK_ROWS, tag & MASK32,
+                 expected_mac & MASK32, stream)
     _build.check(rc, "mpk_guard_copy")
     mac, ok = mac_ok.split(1)
     return copy, mac.view(torch.uint32), ok
@@ -142,33 +170,56 @@ def _guard_copy_two_pass(payload_u32: torch.Tensor, tag: int, expected_mac: int)
     rows = payload_u32.shape[0]
     dev = payload_u32.device
     copy = torch.empty_like(payload_u32)
-    partials = torch.empty(max(1, _n_chunks(rows)), dtype=torch.uint32, device=dev)
+    partials = torch.empty(max(1, _cdiv(rows, TWO_PASS_CHUNK_ROWS)), dtype=torch.uint32,
+                           device=dev)
     mac = torch.empty(1, dtype=torch.uint32, device=dev)
     ok = torch.empty(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().mpk_guard_copy_two_pass(
             payload_u32.data_ptr(), copy.data_ptr(), partials.data_ptr(),
-            mac.data_ptr(), ok.data_ptr(), rows, CHUNK_ROWS, tag & MASK32,
+            mac.data_ptr(), ok.data_ptr(), rows, TWO_PASS_CHUNK_ROWS, tag & MASK32,
             expected_mac & MASK32, _stream(payload_u32))
     _build.check(rc, "mpk_guard_copy_two_pass")
     return copy, mac, ok
 
 
 def mac_batch_cuda(stack_u32: torch.Tensor, tag: int) -> torch.Tensor:
-    """(N, rows, 128) uint32 → (N,) uint32 MACs, one launch."""
+    """(N, rows, 128) uint32 → (N,) uint32 MACs, one launch; the stack must
+    start 16-byte aligned."""
+    _check_rows(stack_u32, 3, "mac_batch")
+    src = _aligned(stack_u32, "mac_batch")
+    frames, rows = stack_u32.shape[0], stack_u32.shape[1]
+    if not 0 < frames <= 65535:
+        raise ValueError(f"mac_batch: 1..65535 frames per launch, got {frames}")
+    dev = stack_u32.get_device()
+    stream = workspace.current_stream(dev)
+    counters, partials = workspace.scratch(
+        "mac_batch", dev, stream, counters=frames,
+        nbytes=4 * frames * _cdiv(rows, MAC_CHUNK_ROWS))
+    macs = torch.empty(frames, dtype=torch.uint32, device=stack_u32.device)
+    rc = _launch(dev, _lib().mpk_mac_batch, src, partials, counters, macs.data_ptr(),
+                 frames, rows, MAC_CHUNK_ROWS, mac_threads(rows), tag & MASK32, stream)
+    _build.check(rc, "mpk_mac_batch")
+    return macs
+
+
+def _mac_batch_two_pass(stack_u32: torch.Tensor, tag: int) -> torch.Tensor:
+    """The earlier two-launch mac_batch (one thread per lane, 4-byte
+    accesses, a second launch for the sums). No path of the port calls it:
+    ``chip_smoke.py`` times it as the yardstick ``earlier_ms``."""
     _check_rows(stack_u32, 3, "mac_batch")
     frames, rows = stack_u32.shape[0], stack_u32.shape[1]
     if not 0 < frames <= 65535:
         raise ValueError(f"mac_batch: 1..65535 frames per launch, got {frames}")
     dev = stack_u32.device
-    partials = torch.empty(max(1, frames * _n_chunks(rows)), dtype=torch.uint32,
-                           device=dev)
+    partials = torch.empty(max(1, frames * _cdiv(rows, TWO_PASS_CHUNK_ROWS)),
+                           dtype=torch.uint32, device=dev)
     macs = torch.empty(frames, dtype=torch.uint32, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().mpk_mac_batch(stack_u32.data_ptr(), partials.data_ptr(),
-                                  macs.data_ptr(), frames, rows, CHUNK_ROWS,
-                                  tag & MASK32, _stream(stack_u32))
-    _build.check(rc, "mpk_mac_batch")
+        rc = _lib().mpk_mac_batch_two_pass(
+            stack_u32.data_ptr(), partials.data_ptr(), macs.data_ptr(), frames, rows,
+            TWO_PASS_CHUNK_ROWS, tag & MASK32, _stream(stack_u32))
+    _build.check(rc, "mpk_mac_batch_two_pass")
     return macs
 
 
@@ -183,20 +234,45 @@ def mac_init_state_cuda(tag: int, device) -> torch.Tensor:
     return out
 
 
-def mac_update_cuda(h: torch.Tensor, block_u32: torch.Tensor) -> torch.Tensor:
-    """Advance a (128,) uint32 state over an (m, 128) block (m may be 0)."""
+def _check_state(h: torch.Tensor, block_u32: torch.Tensor) -> None:
     _check_rows(block_u32, 2, "mac_update block")
     _check_rows(h, 1, "mac_update state")
+    if h.device != block_u32.device:
+        raise ValueError(f"mac_update: state on {h.device}, block on {block_u32.device}")
+
+
+def mac_update_cuda(h: torch.Tensor, block_u32: torch.Tensor) -> torch.Tensor:
+    """Advance a (128,) uint32 state over an (m, 128) block (m may be 0) in
+    one launch; the block must start 16-byte aligned."""
+    _check_state(h, block_u32)
+    src = _aligned(block_u32, "mac_update")
+    rows = block_u32.shape[0]
+    dev = block_u32.get_device()
+    stream = workspace.current_stream(dev)
+    counters, _ = workspace.scratch("mac_update", dev, stream, counters=1 + LANES, nbytes=0)
+    out = torch.empty(LANES, dtype=torch.uint32, device=block_u32.device)
+    rc = _launch(dev, _lib().mpk_mac_update, h.data_ptr(), src, counters, out.data_ptr(),
+                 rows, MAC_CHUNK_ROWS, mac_threads(rows), stream)
+    _build.check(rc, "mpk_mac_update")
+    return out
+
+
+def _mac_update_two_pass(h: torch.Tensor, block_u32: torch.Tensor) -> torch.Tensor:
+    """The earlier two-launch mac_update (one thread per lane, 4-byte
+    accesses, a one-block second launch that sums the chunk partials
+    serially per lane). No path of the port calls it: ``chip_smoke.py``
+    times it as the yardstick ``earlier_ms``."""
+    _check_state(h, block_u32)
     rows = block_u32.shape[0]
     dev = block_u32.device
-    partials = torch.empty(max(1, _n_chunks(rows)) * LANES, dtype=torch.uint32,
-                           device=dev)
+    partials = torch.empty(max(1, _cdiv(rows, TWO_PASS_CHUNK_ROWS)) * LANES,
+                           dtype=torch.uint32, device=dev)
     out = torch.empty(LANES, dtype=torch.uint32, device=dev)
     with torch.cuda.device(dev):
-        rc = _lib().mpk_mac_update(h.data_ptr(), block_u32.data_ptr(),
-                                   partials.data_ptr(), out.data_ptr(), rows,
-                                   CHUNK_ROWS, _stream(block_u32))
-    _build.check(rc, "mpk_mac_update")
+        rc = _lib().mpk_mac_update_two_pass(h.data_ptr(), block_u32.data_ptr(),
+                                            partials.data_ptr(), out.data_ptr(), rows,
+                                            TWO_PASS_CHUNK_ROWS, _stream(block_u32))
+    _build.check(rc, "mpk_mac_update_two_pass")
     return out
 
 

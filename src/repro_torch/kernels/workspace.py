@@ -1,9 +1,11 @@
 """Per-(device, stream) scratch for the one-launch kernels.
 
-``decode_attention`` and ``guard_copy`` finish in one launch: their blocks
-write partial results to scratch memory and count themselves in arrival
-counters; the last block of a group merges the partials and sets its
-counter back to 0. Two launches on one stream run one after the other, so
+``decode_attention``, ``guard_copy``, ``mac_batch`` and ``mac_update``
+finish in one launch: their blocks write partial results to scratch memory
+(``mac_update`` adds them into an accumulator kept among the zeroed
+counter words) and count themselves in arrival counters; the last block of
+a group merges the partials and sets its counter (and accumulator) back to
+0. Two launches on one stream run one after the other, so
 one scratch area per (kernel, device, stream) is enough, and it is reused
 by every later call: no allocation on the hot path.
 
