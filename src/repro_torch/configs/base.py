@@ -1,8 +1,10 @@
 """Configuration dataclasses for the PyTorch port.
 
-A copy of the model and serving dataclasses of ``repro.configs.base`` (the
-port imports nothing of ``repro``); the shape grid and training configs
-join when training is ported.
+A copy of the dataclasses of ``repro.configs.base`` (the port imports
+nothing of ``repro``): models, the shape grid, training, sharding and
+serving. ``ShardingConfig`` is kept so that ``TrainConfig`` and
+``ServeConfig`` have the reference's fields; on one card it selects
+nothing.
 Plain dataclasses (no external deps) so configs are hashable-ish, printable and
 trivially serializable. One ``ModelConfig`` per ported architecture lives in
 ``repro_torch.configs.<arch>``; the registry maps ``--arch`` ids to them.
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Model architecture
@@ -174,8 +176,53 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Serving knobs
+# Input shapes (the assigned grid)
 # ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runs?, reason) for an (arch, shape) cell. Skips are recorded, never silent."""
+    if shape.name == "long_500k" and not model.sub_quadratic:
+        return False, "long_500k needs sub-quadratic attention; %s is pure full-attention" % model.name
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Training / serving / sharding knobs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
 
 @dataclass(frozen=True)
 class ShardingConfig:
@@ -186,6 +233,19 @@ class ShardingConfig:
     grad_compression: bool = False  # int8+EF on cross-pod gradient reduce
     remat: str = "block"          # none | block | full
     scan_layers: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    microbatch_size: int = 8      # per-step microbatch (grad accumulation over global/micro)
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    sharding: ShardingConfig = field(default_factory=ShardingConfig)
+    seed: int = 0
+    log_every: int = 10
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
 
 
 @dataclass(frozen=True)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.kernels import mpk_guard as _mg
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import MAC_PRIME, MASK32
 
@@ -97,13 +98,18 @@ def _meta_mix(header: list, seed: int) -> int:
 
 def mac_batch(payloads: Sequence[torch.Tensor], seed: int) -> List[int]:
     """Payload MACs for N (rows, 128) uint32 tensors on one device: frames
-    are grouped by row count and each group is MAC'd by one ``mac_batch``
-    launch. A singleton group is passed as a view (no stacking copy)."""
+    are grouped by row count and each group is MAC'd by ``mac_batch``
+    launches of at most ``mpk_guard.MAX_BATCH_FRAMES`` frames, so any N is
+    taken, as the reference's numpy ``mac_batch`` takes it. A singleton
+    group is passed as a view (no stacking copy)."""
     out: List[Optional[int]] = [None] * len(payloads)
     groups: Dict[int, List[int]] = {}
     for i, p in enumerate(payloads):
         groups.setdefault(p.shape[0], []).append(i)
-    for idx in groups.values():
+    limit = _mg.MAX_BATCH_FRAMES
+    chunks = [idx[c:c + limit] for idx in groups.values()
+              for c in range(0, len(idx), limit)]
+    for idx in chunks:
         if len(idx) == 1:
             stack = payloads[idx[0]][None]
         else:

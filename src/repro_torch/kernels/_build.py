@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("mpk_guard", "decode_attention", "flash_attention", "ssd_scan")
+SOURCES = ("mpk_guard", "decode_attention", "flash_attention", "flash_attention_bwd",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -7,6 +7,11 @@
 // may be out of order), scale Dh^-0.5, online softmax in f32, masked tiles
 // skipped, out = acc / max(l, 1e-30), rows with q_pos < 0 exactly 0, output
 // in q's dtype. Sq and Skv may be ragged: nothing is padded on the host.
+// Dh is 64, 80 or 128. When the caller passes an lse buffer (training: the
+// backward in flash_attention_bwd.cu recomputes P from it), each row's
+// log-sum-exp of its scaled scores is written as f32 (B, Sq, H), NEG_INF on a
+// row with no valid key or with q_pos < 0; prefill passes null and pays
+// nothing.
 //
 // Bound on the H100: operations. At prefill every K/V tile is reused by all
 // the query rows of a block, so the work is 4·Dh flops per valid (q, kv)
@@ -21,7 +26,8 @@
 // counts down), so the long causal rows start before the short ones.
 //  - Loads: TMA with 128-byte swizzle. The tensors are strided (B, S, H, Dh),
 //    so each tensor map is 4-d {Dh, heads, S, B} and a tile is a box of 64
-//    head dims x 1 head x rows x 1 batch row (Dh 128 is two boxes). The Q
+//    head dims x 1 head x rows x 1 batch row (Dh 128 is two boxes; Dh 80 runs
+//    in the Dh 128 layout, its second box zero past head dim 79). The Q
 //    tile is loaded once; K/V tiles of 128 rows go through a ring of stages
 //    (4 at Dh 64, 2 at Dh 128; 147 / 162 KB of shared memory) with a full
 //    and an empty mbarrier each. Rows past Sq or Skv arrive as zeros and
@@ -46,8 +52,8 @@
 // Rounding points: q, k, v are bf16 operands; S, the softmax state and O
 // accumulate in f32; P is rounded to bf16 for P·V while l sums the f32 p;
 // the output is rounded to bf16 once.
-// ptxas (sm_90a, -O3): flash_fwd_wgmma<64> 155 registers, <128> 168; no
-// spills.
+// ptxas (sm_90a, -O3): flash_fwd_wgmma<64> 155 registers, <80> and <128> 168;
+// no spills.
 //
 // CUDA cores: flash_fwd<T, DH>, the earlier design. Its f32 instance is the f32
 // kernel, kept because the f32 tolerance (2e-5) cannot be met with bf16 or
@@ -62,8 +68,8 @@
 // transposed for the P·V product. A kv tile is skipped when no (q, kv) pair
 // of it is valid, tested on positions with __syncthreads_or before any K/V
 // byte is read.
-// ptxas (sm_90a, -O3): flash_fwd<T, 64> 79 registers, <T, 128> 127, both
-// dtypes; no spills.
+// ptxas (sm_90a, -O3): flash_fwd<T, 64> 99 registers, <T, 80> and <T, 128>
+// 127, both dtypes; no spills.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,9 +128,9 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads) flash_fwd(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const int32_t* __restrict__ q_pos, const int32_t* __restrict__ kv_pos,
-    T* __restrict__ out, int Sq, int Skv, int H, int Hkv, int causal, int window,
-    float scale) {
-  constexpr int kDj = DH / 64;     // 64-wide head-dim groups per thread
+    T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
+    int causal, int window, float scale) {
+  constexpr int kDj = (DH + 63) / 64;   // 64-wide head-dim groups per thread
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);   // [DH][kLd]  q tile, transposed
   float* kt = qt + DH * kLd;                     // [DH][kLd]  k tile, transposed
@@ -229,6 +235,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(
       const float4 p = *reinterpret_cast<const float4*>(&pt[r * kLd + ty * 4]);
 #pragma unroll
       for (int jj = 0; jj < kDj; ++jj) {
+        if (jj * 64 + tx * 4 >= DH) continue;   // Dh 80: the second group is 16 wide
         const float4 w = *reinterpret_cast<const float4*>(&vs[r * DH + jj * 64 + tx * 4]);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -247,16 +254,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(
     const float denom = fmaxf(l[i], 1e-30f);
     T* o = out + (((size_t)b * Sq + q0 + r) * H + h) * DH;
 #pragma unroll
-    for (int jj = 0; jj < kDj; ++jj)
+    for (int jj = 0; jj < kDj; ++jj) {
+      if (jj * 64 + tx * 4 >= DH) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         store(&o[jj * 64 + tx * 4 + e], pad ? 0.f : acc[i][jj * 4 + e] / denom);
+    }
+    if (lse != nullptr && tx == 0)         // natural-log sum of the row's exp(scores)
+      lse[((size_t)b * Sq + q0 + r) * H + h] =
+          !pad && l[i] > 0.f ? m[i] + logf(l[i]) : kNegInf;
   }
 }
 
 template <typename T, int DH>
 int launch_dh(const void* q, const void* k, const void* v, const void* q_pos,
-              const void* kv_pos, void* out, int B, int Sq, int Skv, int H,
+              const void* kv_pos, void* out, void* lse, int B, int Sq, int Skv, int H,
               int Hkv, int causal, int window, float scale, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -266,20 +278,24 @@ int launch_dh(const void* q, const void* k, const void* v, const void* q_pos,
   flash_fwd<T, DH><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(q_pos), static_cast<const int32_t*>(kv_pos),
-      static_cast<T*>(out), Sq, Skv, H, Hkv, causal, window, scale);
+      static_cast<T*>(out), static_cast<float*>(lse), Sq, Skv, H, Hkv, causal, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* q_pos,
-           const void* kv_pos, void* out, int B, int Sq, int Skv, int H, int Hkv,
-           int Dh, int causal, int window, float scale, void* stream) {
+           const void* kv_pos, void* out, void* lse, int B, int Sq, int Skv, int H,
+           int Hkv, int Dh, int causal, int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dh == 64)
-    return launch_dh<T, 64>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv,
+    return launch_dh<T, 64>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, H, Hkv,
+                            causal, window, scale, st);
+  if (Dh == 80)
+    return launch_dh<T, 80>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, H, Hkv,
                             causal, window, scale, st);
   if (Dh == 128)
-    return launch_dh<T, 128>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv,
+    return launch_dh<T, 128>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, H, Hkv,
                              causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -502,13 +518,24 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)
     wgmma_m64n128_rs(o, a, db);
 }
 
+// Dh 64 and 128 fill their 64-wide boxes; Dh 80 runs in the Dh 128 layout,
+// whose second box holds head dims 64..79 and zeros (TMA fills the columns
+// past Dh): QKᵀ takes only the 5 k-steps of the real dims, P·V runs at N = 128
+// and the zero columns of V give accumulators that are never stored.
+template <int DH>
+__host__ __device__ constexpr int padded_dh() {
+  return DH == 64 ? 64 : 128;
+}
+
 template <int DH>
 __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_wgmma(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const int32_t* __restrict__ q_pos,
-    const int32_t* __restrict__ kv_pos, __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-    int H, int Hkv, int causal, int window, float scale_log2) {
-  using L = Layout<DH>;
+    const int32_t* __restrict__ kv_pos, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Skv, int H, int Hkv, int causal, int window,
+    float scale_log2) {
+  constexpr int DP = padded_dh<DH>();
+  using L = Layout<DP>;
   constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   // TMA boxes with 128-byte swizzle need 1024-byte aligned destinations
@@ -602,9 +629,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_wgmma(
     const int qp0 = q0 + r0 < Sq ? q_pos[(size_t)b * Sq + q0 + r0] : -1;
     const int qp1 = q0 + r1 < Sq ? q_pos[(size_t)b * Sq + q0 + r1] : -1;
     const uint32_t sq = smem_u32(smem) + wg * 64 * kRow;
-    float o[DH / 2];
+    float o[DP / 2];
 #pragma unroll
-    for (int j = 0; j < DH / 2; ++j) o[j] = 0.f;
+    for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
     // running max in the exp2 domain (-inf until a row sees a valid key)
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
@@ -678,12 +705,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_wgmma(
         for (int r = 0; r < 4; ++r)
           pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 #pragma unroll
-      for (int j = 0; j < DH / 2; ++j) o[j] *= (j & 2) ? c1 : c0;
+      for (int j = 0; j < DP / 2; ++j) o[j] *= (j & 2) ? c1 : c0;
 
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)   // 16 kv rows per step
-        wgmma_pv<DH>(o, pf[kk], sw128_desc(sv + kk * 16 * kRow, kBN * kRow, 8 * kRow));
+        wgmma_pv<DP>(o, pf[kk], sw128_desc(sv + kk * 16 * kRow, kBN * kRow, 8 * kRow));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -700,6 +727,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_wgmma(
       l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
     }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (lse != nullptr && (lane & 3) == 0) {   // m is in the exp2 domain: ln = m·ln2 + ln l
+      constexpr float kLn2 = 0.6931471805599453f;
+      float* lp = lse + ((size_t)b * Sq + q0 + r0) * H + h;
+      if (q0 + r0 < Sq) lp[0] = qp0 >= 0 && l0 > 0.f ? m0 * kLn2 + logf(l0) : kNegInf;
+      if (q0 + r1 < Sq)
+        lp[(size_t)8 * H] = qp1 >= 0 && l1 > 0.f ? m1 * kLn2 + logf(l1) : kNegInf;
+    }
     __nv_bfloat16* o0 = out + (((size_t)b * Sq + q0 + r0) * H + h) * DH + (lane & 3) * 2;
     __nv_bfloat16* o1 = o0 + (size_t)8 * H * DH;
 #pragma unroll
@@ -759,20 +793,21 @@ bool make_map(CUtensorMap* map, const void* base, int Dh, int heads, int S, int 
 
 template <int DH>
 int launch_wgmma_dh(const void* q, const void* k, const void* v, const void* q_pos,
-                    const void* kv_pos, void* out, int B, int Sq, int Skv, int H, int Hkv,
-                    int causal, int window, float scale, cudaStream_t st) {
+                    const void* kv_pos, void* out, void* lse, int B, int Sq, int Skv, int H,
+                    int Hkv, int causal, int window, float scale, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, DH, H, Sq, B, kBM) || !make_map(&tk, k, DH, Hkv, Skv, B, kBN) ||
       !make_map(&tv, v, DH, Hkv, Skv, B, kBN))
     return (int)cudaErrorInvalidValue;
-  constexpr int smem = Layout<DH>::kBytes;
+  constexpr int smem = Layout<padded_dh<DH>()>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
   flash_fwd_wgmma<DH><<<grid, kFwdThreads, smem, st>>>(
       tq, tk, tv, static_cast<const int32_t*>(q_pos), static_cast<const int32_t*>(kv_pos),
-      static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Hkv, causal, window, scale * kLog2e);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Sq, Skv, H, Hkv, causal,
+      window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -781,27 +816,32 @@ int launch_wgmma_dh(const void* q, const void* k, const void* v, const void* q_p
 extern "C" {
 
 // q (B,Sq,H,Dh), k/v (B,Skv,Hkv,Dh) f32, q_pos (B,Sq) i32, kv_pos (B,Skv) i32
-// → out (B,Sq,H,Dh). Dh is 64 or 128; window <= 0 means no window.
+// → out (B,Sq,H,Dh) and, when lse is not null, the rows' log-sum-exp
+// (B,Sq,H) f32 (NEG_INF on a row with no valid key), for the backward.
+// Dh is 64, 80 or 128; window <= 0 means no window.
 int flash_attention_f32(const void* q, const void* k, const void* v,
-                        const void* q_pos, const void* kv_pos, void* out, int B,
-                        int Sq, int Skv, int H, int Hkv, int Dh, int causal,
+                        const void* q_pos, const void* kv_pos, void* out, void* lse,
+                        int B, int Sq, int Skv, int H, int Hkv, int Dh, int causal,
                         int window, float scale, void* stream) {
-  return launch<float>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, Dh,
+  return launch<float>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, H, Hkv, Dh,
                        causal, window, scale, stream);
 }
 
 // The same for bf16 q/k/v/out (16-byte aligned), on the tensor cores.
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         const void* q_pos, const void* kv_pos, void* out, int B,
-                         int Sq, int Skv, int H, int Hkv, int Dh, int causal,
+                         const void* q_pos, const void* kv_pos, void* out, void* lse,
+                         int B, int Sq, int Skv, int H, int Hkv, int Dh, int causal,
                          int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Dh == 64)
-    return launch_wgmma_dh<64>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, causal,
-                               window, scale, st);
+    return launch_wgmma_dh<64>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, H, Hkv,
+                               causal, window, scale, st);
+  if (Dh == 80)
+    return launch_wgmma_dh<80>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, H, Hkv,
+                               causal, window, scale, st);
   if (Dh == 128)
-    return launch_wgmma_dh<128>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, causal,
-                                window, scale, st);
+    return launch_wgmma_dh<128>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, H, Hkv,
+                                causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -809,9 +849,10 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
 // not on any path of the port, timed beside flash_attention_bf16.
 int flash_attention_bf16_cuda_cores(const void* q, const void* k, const void* v,
                                     const void* q_pos, const void* kv_pos, void* out,
-                                    int B, int Sq, int Skv, int H, int Hkv, int Dh,
-                                    int causal, int window, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, Dh,
+                                    void* lse, int B, int Sq, int Skv, int H, int Hkv,
+                                    int Dh, int causal, int window, float scale,
+                                    void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, H, Hkv, Dh,
                                causal, window, scale, stream);
 }
 

@@ -16,6 +16,18 @@ cores. Its ragged ends are masked in the kernel, so no shape is padded.
 :func:`flash_attention_plain` is the forward of ``flash_jnp.flash_attention_jnp``, chunked over q rows as
 well so that a long prefill never holds the (Sq, Skv) score matrix.
 ``kernels.ops`` picks one by the tensor's device and counts the launches.
+Dh is 64, 80 or 128 on the card (the reference tiles the same three).
+
+The backward (the port of ``flash_jnp._flash_bwd``, which
+``kernels.ops.FlashAttention`` runs): with ``return_lse`` the forward also
+returns each row's log-sum-exp (B, Sq, H) f32, from which the backward
+recomputes the softmax block by block. :func:`flash_attention_bwd_cuda`
+launches ``csrc/flash_attention_bwd.cu``; :func:`flash_attention_bwd_plain`
+is its plain version. A row whose output the forward forces to 0
+(``q_pos < 0``) or that has no valid key is dead: its log-sum-exp is
+NEG_INF and it has no gradient. The reference's backward differs on one
+case the models never reach: a row with ``q_pos < 0`` that has valid keys
+(non-causal) passes it gradients although its output is the constant 0.
 """
 from __future__ import annotations
 
@@ -27,16 +39,21 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF
 
-HEAD_DIMS = (64, 128)        # the head dims the kernel is built for
+HEAD_DIMS = (64, 80, 128)    # the head dims the kernels are built for
 CHUNK = 128                  # q and kv rows per step of the plain version
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
+_SIG = (_P,) * 7 + (_I,) * 8 + (ctypes.c_float, _P)
 _SIGNATURES = {"flash_attention_f32": _SIG, "flash_attention_bf16": _SIG,
                "flash_attention_bf16_cuda_cores": _SIG}
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_BWD_SIG = (_P,) * 12 + (_I,) * 8 + (ctypes.c_float, _P)
+_BWD_SIGNATURES = {"flash_attention_bwd_f32": _BWD_SIG,
+                   "flash_attention_bwd_bf16": _BWD_SIG}
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
 def _valid(qp, kp, causal: bool, window: Optional[int]) -> torch.Tensor:
@@ -52,9 +69,11 @@ def _valid(qp, kp, causal: bool, window: Optional[int]) -> torch.Tensor:
 
 
 def flash_attention_plain(q, k, v, q_pos, kv_pos, *, causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None, return_lse: bool = False):
     """The same function in plain PyTorch: online softmax over kv chunks of
-    ``CHUNK`` rows for each q chunk of ``CHUNK`` rows, in f32."""
+    ``CHUNK`` rows for each q chunk of ``CHUNK`` rows, in f32. With
+    ``return_lse`` → (out, lse (B, Sq, H) f32), as ``_fwd_core`` returns
+    them, NEG_INF on dead rows."""
     B, Sq, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
@@ -65,6 +84,7 @@ def flash_attention_plain(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     neg = torch.tensor(NEG_INF, device=q.device)
     zero = torch.zeros((), device=q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((B, Sq, H), device=q.device) if return_lse else None
     for q0 in range(0, Sq, qc):
         qb = q[:, q0:q0 + qc].float()
         n = qb.shape[1]
@@ -88,13 +108,61 @@ def flash_attention_plain(q, k, v, q_pos, kv_pos, *, causal: bool = True,
         ob = torch.where((qp < 0)[:, None, None, :, None], zero, ob)
         out[:, q0:q0 + n] = ob.permute(0, 3, 1, 2, 4).reshape(B, n, H, Dh) \
             .to(q.dtype)
-    return out
+        if return_lse:
+            dead = (l <= 0) | (qp < 0)[:, None, None, :]
+            ls = torch.where(dead, neg, m + torch.log(torch.clamp(l, min=1e-30)))
+            lse[:, q0:q0 + n] = ls.permute(0, 3, 1, 2).reshape(B, n, H)
+    return (out, lse) if return_lse else out
 
 
-def _launch(entry, q, k, v, q_pos, kv_pos, causal: bool,
-            window: Optional[int]) -> torch.Tensor:
-    """Check the inputs and run the library's ``entry``; raises for inputs
-    the kernels do not take."""
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, q_pos, kv_pos, *,
+                              causal: bool = True, window: Optional[int] = None):
+    """The backward in plain PyTorch, the port of ``flash_jnp._flash_bwd``
+    on ragged shapes: for each q chunk and kv chunk of ``CHUNK`` rows, P is
+    recomputed from the saved log-sum-exp (masked before the exp), and dq,
+    dk, dv accumulate in f32; dk and dv are summed over each GQA group.
+    → (dq, dk, dv) in q's, k's and v's dtypes."""
+    B, Sq, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = Dh ** -0.5
+    qp_all, kp_all = q_pos.to(torch.int32), kv_pos.to(torch.int32)
+    kf, vf = k.float(), v.float()
+    zero = torch.zeros((), device=q.device)
+    delta = (out.float() * dout.float()).sum(-1)                  # (B, Sq, H)
+    live = (lse > NEG_INF / 2) & (qp_all >= 0)[:, :, None]
+
+    def heads_last(t, q0, n):        # (B, Sq, H) → (B, Hkv, g, n, 1)
+        return t[:, q0:q0 + n].reshape(B, n, Hkv, g).permute(0, 2, 3, 1)[..., None]
+
+    dq = torch.zeros((B, Sq, Hkv, g, Dh), device=q.device)
+    dk = torch.zeros((B, Skv, Hkv, Dh), device=q.device)
+    dv = torch.zeros((B, Skv, Hkv, Dh), device=q.device)
+    for q0 in range(0, Sq, CHUNK):
+        qb = q[:, q0:q0 + CHUNK].float()
+        n = qb.shape[1]
+        qb = qb.reshape(B, n, Hkv, g, Dh)
+        dob = dout[:, q0:q0 + CHUNK].float().reshape(B, n, Hkv, g, Dh)
+        qp = qp_all[:, q0:q0 + n]
+        lse_t, dl_t = heads_last(lse, q0, n), heads_last(delta, q0, n)
+        lv_t = heads_last(live, q0, n)
+        for k0 in range(0, Skv, CHUNK):
+            kb, vb = kf[:, k0:k0 + CHUNK], vf[:, k0:k0 + CHUNK]
+            ok = _valid(qp, kp_all[:, k0:k0 + CHUNK], causal, window) & lv_t
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
+            p = torch.exp(torch.where(ok, s - lse_t, -torch.inf))
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vb)
+            ds = torch.where(ok, p * (dp - dl_t), zero) * scale
+            dv[:, k0:k0 + CHUNK] += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
+            dk[:, k0:k0 + CHUNK] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb)
+            dq[:, q0:q0 + n] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kb)
+    return (dq.reshape(B, Sq, H, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check(q, k, v, q_pos, kv_pos, window: Optional[int]):
+    """Raise for inputs the kernels do not take. → (q_pos, kv_pos) as
+    contiguous int32."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: CUDA tensors required, got {q.device}")
     B, Sq, H, Dh = q.shape
@@ -122,21 +190,72 @@ def _launch(entry, q, k, v, q_pos, kv_pos, causal: bool,
             or kp.device != q.device):
         raise ValueError("flash_attention: q_pos (B, Sq) and kv_pos (B, Skv) "
                          "on q's device")
+    return qp, kp
+
+
+def _launch(entry, q, k, v, q_pos, kv_pos, causal: bool,
+            window: Optional[int], return_lse: bool = False):
+    """Check the inputs and run the library's ``entry`` → out, or (out,
+    lse) with ``return_lse``."""
+    qp, kp = _check(q, k, v, q_pos, kv_pos, window)
+    B, Sq, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty((B, Sq, H), device=q.device) if return_lse else None
     fn = getattr(_build.load("flash_attention", _SIGNATURES), entry)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
-                kp.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, Dh,
+                kp.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, Sq, Skv, H, Hkv, Dh,
                 int(causal), 0 if window is None else int(window), Dh ** -0.5,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, entry)
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """Launch the CUDA kernel; raises for inputs it does not take."""
-    return _launch(_ENTRY.get(q.dtype), q, k, v, q_pos, kv_pos, causal, window)
+                         window: Optional[int] = None, return_lse: bool = False):
+    """Launch the CUDA kernel; raises for inputs it does not take. With
+    ``return_lse`` → (out, lse (B, Sq, H) f32); without, no lse is
+    written."""
+    return _launch(_ENTRY.get(q.dtype), q, k, v, q_pos, kv_pos, causal, window,
+                   return_lse)
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, q_pos, kv_pos, *,
+                             causal: bool = True, window: Optional[int] = None):
+    """Launch the backward kernels (Δ, dK/dV, dQ; one call) on the
+    forward's inputs, its output and log-sum-exp and the output gradient:
+    in bf16 on the tensor cores (``mma.sync``), in f32 on the CUDA cores.
+    → (dq, dk, dv) in the inputs' dtype; raises for inputs it does not
+    take."""
+    qp, kp = _check(q, k, v, q_pos, kv_pos, window)
+    entry = _BWD_ENTRY[q.dtype]
+    B, Sq, H, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    for t in (out, dout):
+        if (t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError("flash_attention_bwd: out and dout contiguous, "
+                             "of q's shape, dtype and device")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError("flash_attention_bwd: bf16 out and dout must start "
+                             "16-byte aligned (read in 16-byte pieces)")
+    if (lse.shape != (B, Sq, H) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError("flash_attention_bwd: lse (B, Sq, H) f32 on q's device")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Sq, H), device=q.device)
+    fn = getattr(_build.load("flash_attention_bwd", _BWD_SIGNATURES), entry)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                B, Sq, Skv, H, Hkv, Dh, int(causal),
+                0 if window is None else int(window), Dh ** -0.5,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, entry)
+    return dq, dk, dv
 
 
 def _flash_attention_cuda_cores(q, k, v, q_pos, kv_pos, *, causal: bool = True,

@@ -42,6 +42,7 @@ GUARD_CHUNK_ROWS = 128  # payload rows per CUDA block of guard_copy
 MAC_CHUNK_ROWS = 256    # payload rows per CUDA block of mac_batch / mac_update
 MAC_THREADS = 512       # most threads per block of mac_batch / mac_update
 TWO_PASS_CHUNK_ROWS = 64  # rows per block of the earlier two-launch designs
+MAX_BATCH_FRAMES = 65535  # frames per mac_batch launch (the kernel's grid y)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -189,8 +190,9 @@ def mac_batch_cuda(stack_u32: torch.Tensor, tag: int) -> torch.Tensor:
     _check_rows(stack_u32, 3, "mac_batch")
     src = _aligned(stack_u32, "mac_batch")
     frames, rows = stack_u32.shape[0], stack_u32.shape[1]
-    if not 0 < frames <= 65535:
-        raise ValueError(f"mac_batch: 1..65535 frames per launch, got {frames}")
+    if not 0 < frames <= MAX_BATCH_FRAMES:
+        raise ValueError(f"mac_batch: 1..{MAX_BATCH_FRAMES} frames per launch, "
+                         f"got {frames}")
     dev = stack_u32.get_device()
     stream = workspace.current_stream(dev)
     counters, partials = workspace.scratch(
@@ -209,8 +211,9 @@ def _mac_batch_two_pass(stack_u32: torch.Tensor, tag: int) -> torch.Tensor:
     ``chip_smoke.py`` times it as the yardstick ``earlier_ms``."""
     _check_rows(stack_u32, 3, "mac_batch")
     frames, rows = stack_u32.shape[0], stack_u32.shape[1]
-    if not 0 < frames <= 65535:
-        raise ValueError(f"mac_batch: 1..65535 frames per launch, got {frames}")
+    if not 0 < frames <= MAX_BATCH_FRAMES:
+        raise ValueError(f"mac_batch: 1..{MAX_BATCH_FRAMES} frames per launch, "
+                         f"got {frames}")
     dev = stack_u32.device
     partials = torch.empty(max(1, frames * _cdiv(rows, TWO_PASS_CHUNK_ROWS)),
                            dtype=torch.uint32, device=dev)

@@ -5,7 +5,10 @@ and launches the hand-written CUDA kernel for a tensor on a CUDA device;
 there is no fallback between the two, and any other device raises. Each
 CUDA launch adds one to its kernel's count in :data:`LAUNCHES`, so a run
 can show that its main path went through the kernels (``chip_smoke.py``
-zeroes the counts, drives the server and reads them).
+zeroes the counts, drives the server and reads them). No gradient is
+dropped: ``attention`` differentiates through its kernels, and the kernels
+without a backward (decode attention, the SSD scan) refuse CUDA inputs
+that require grad (:func:`refuse_grad`).
 """
 from __future__ import annotations
 
@@ -18,9 +21,9 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mpk_guard as _mg
 from repro_torch.kernels import ssd_scan as _ss
-
 KERNELS = ("guard_copy", "mac_batch", "mac_init_state", "mac_update",
-           "mac_finalize", "decode_attention", "flash_attention", "ssd_scan")
+           "mac_finalize", "decode_attention", "flash_attention",
+           "flash_attention_bwd", "ssd_scan")
 
 
 class LaunchCounts:
@@ -44,6 +47,23 @@ class LaunchCounts:
 
 
 LAUNCHES = LaunchCounts()
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd would differentiate through these inputs."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd would need a backward that the CUDA kernel
+    ``what`` does not have: its output carries no ``grad_fn``, so running on
+    would drop every gradient through it without a word."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and an input requires "
+            f"grad; run under torch.no_grad(), or use the plain version "
+            f"(Impl(...='plain')) to differentiate")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -105,10 +125,13 @@ def mac_finalize(h: torch.Tensor) -> torch.Tensor:
 
 def decode_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                      window: Optional[int] = None) -> torch.Tensor:
-    """Single-token attention, q (B, 1, H, Dh) over k/v (B, S, Hkv, Dh)."""
+    """Single-token attention, q (B, 1, H, Dh) over k/v (B, S, Hkv, Dh).
+    The kernel has no backward: on a CUDA tensor that requires grad it
+    raises."""
     if not _on_cuda(q):
         return _da.decode_attention_plain(q, k, v, q_pos, kv_pos,
                                           causal=causal, window=window)
+    refuse_grad("decode_attention", q, k, v)
     out = _da.decode_attention_cuda(q, k, v, q_pos, kv_pos, causal=causal,
                                     window=window)
     LAUNCHES.bump("decode_attention")
@@ -118,7 +141,11 @@ def decode_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
 def attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
               window: Optional[int] = None) -> torch.Tensor:
     """Full-sequence attention, q (B, Sq, H, Dh) over k/v (B, Skv, Hkv, Dh),
-    any Sq and Skv (the kernel masks its ragged tiles; nothing is padded)."""
+    any Sq and Skv (the kernel masks its ragged tiles; nothing is padded).
+    Under grad mode with an input that requires grad it runs as
+    :class:`FlashAttention`, whose backward is a kernel too."""
+    if needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, q_pos, kv_pos, causal, window)
     if not _on_cuda(q):
         return _fa.flash_attention_plain(q, k, v, q_pos, kv_pos, causal=causal,
                                          window=window)
@@ -128,12 +155,54 @@ def attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     return out
 
 
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention, the port of ``flash_jnp._flash`` (its
+    ``custom_vjp``): ``FlashAttention.apply(q, k, v, q_pos, kv_pos, causal,
+    window)`` → out. On CUDA tensors the forward launches the flash kernel
+    with the log-sum-exp and the backward launches the backward kernel;
+    on the CPU both run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window):
+        if _on_cuda(q):
+            out, lse = _fa.flash_attention_cuda(q, k, v, q_pos, kv_pos,
+                                                causal=causal, window=window,
+                                                return_lse=True)
+            LAUNCHES.bump("flash_attention")
+        else:
+            out, lse = _fa.flash_attention_plain(q, k, v, q_pos, kv_pos,
+                                                 causal=causal, window=window,
+                                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, kv_pos)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_pos, kv_pos = ctx.saved_tensors
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:             # the bf16 kernel reads 16-byte pieces
+            dout = dout.clone()
+        args = (q, k, v, out, lse, dout, q_pos, kv_pos)
+        if _on_cuda(q):
+            dq, dk, dv = _fa.flash_attention_bwd_cuda(*args, causal=ctx.causal,
+                                                      window=ctx.window)
+            LAUNCHES.bump("flash_attention_bwd")
+        else:
+            dq, dk, dv = _fa.flash_attention_bwd_plain(*args, causal=ctx.causal,
+                                                       window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
 def ssd(x, dt, A_log, B, C, D, init_state=None, *, chunk: int = 128):
     """The Mamba2 SSD scan over a whole sequence → (y, final state f32).
     A sequence that is not a chunk multiple ends in identity steps (dt = 0):
-    the plain version pads them, the kernel masks them."""
+    the plain version pads them, the kernel masks them. The kernel has no
+    backward: on a CUDA tensor that requires grad it raises (the plain
+    version differentiates on the CPU)."""
     if not _on_cuda(x):
         return _ss.ssd_scan_plain(x, dt, A_log, B, C, D, init_state, chunk=chunk)
+    refuse_grad("ssd_scan", x, dt, A_log, B, C, D, init_state)
     out = _ss.ssd_scan_cuda(x, dt, A_log, B, C, D, init_state, chunk=chunk)
     LAUNCHES.bump("ssd_scan")
     return out

@@ -1,5 +1,6 @@
 from repro_torch.models.model import (decode_step, forward, init_decode_state,
-                                      init_params)
+                                      init_params, loss_fn)
 from repro_torch.models.transformer import Impl
 
-__all__ = ["decode_step", "forward", "init_decode_state", "init_params", "Impl"]
+__all__ = ["decode_step", "forward", "init_decode_state", "init_params",
+           "loss_fn", "Impl"]

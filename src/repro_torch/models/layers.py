@@ -59,18 +59,37 @@ def embed_tokens(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return params["tok"][tokens].to(dtype)
 
 
+class _HeadF32(torch.autograd.Function):
+    """x (M, D) @ w (Vp, D)ᵀ in x's dtype with an f32 output: one product on
+    the card (``torch.mm(..., out_dtype=f32)``, which has no backward of its
+    own). The backward rounds the f32 logit gradient to x's dtype for its
+    two products (f32 accumulation, outputs in x's dtype), as
+    mixed-precision training does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.T, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w, g.T @ x
+
+
 def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     """(..., D) → (..., Vp) f32 logits. The head is first rounded to x's
     dtype, as the reference rounds it, and the product accumulates and
     returns f32: on the card one bf16 product with an f32 output, with no
-    f32 copy of the head."""
+    f32 copy of the head (differentiable through :class:`_HeadF32`)."""
     w = params["tok"] if cfg.tie_embeddings else params["head"].T   # (Vp, D)
     w = w.to(x.dtype)
     if x.dtype == torch.float32:
         logits = x @ w.T
     elif x.device.type == "cuda":
-        logits = torch.mm(x.reshape(-1, x.shape[-1]), w.T,
-                          out_dtype=torch.float32).reshape(*x.shape[:-1], -1)
+        logits = _HeadF32.apply(x.reshape(-1, x.shape[-1]), w) \
+            .reshape(*x.shape[:-1], -1)
     else:
         logits = x.float() @ w.float().T
     if logits.shape[-1] != cfg.vocab_size:

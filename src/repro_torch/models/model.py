@@ -1,5 +1,6 @@
-"""Top-level model API: init / forward / decode state / decode step for the
-dense and SSM families (the port of that subset of ``repro.models.model``).
+"""Top-level model API: init / forward / loss / decode state / decode step
+for the dense and SSM families (the port of that subset of
+``repro.models.model``).
 
 The parameter tree is the reference's: ``{"embed": {"tok" (Vp, D)[,
 "head"]}, "final_norm": {"scale"}, "blocks": <stacked blocks>}``, so
@@ -8,6 +9,7 @@ The parameter tree is the reference's: ``{"embed": {"tok" (Vp, D)[,
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
@@ -54,6 +56,24 @@ def forward(cfg: ModelConfig, params, batch, *, impl: Impl = Impl(),
         x = x[:, -1:]
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params["embed"], x), {}
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, impl: Impl = Impl(),
+            dtype=torch.bfloat16):
+    """Next-token cross entropy over ``batch["tokens"]`` / ``batch["labels"]``
+    (B, S), labels == -1 masked, averaged over the unmasked targets →
+    (loss, metrics {"ce", "loss"}), as the reference's ``loss_fn`` (the
+    ported families have no MoE aux terms). The logits are f32; position
+    S - 1 predicts nothing (its target is set to -1 rather than sliced off,
+    so the (B, S, Vp) logits are not copied)."""
+    logits, _ = forward(cfg, params, batch, impl=impl, dtype=dtype)
+    labels = batch["labels"].long()
+    targets = torch.full_like(labels, -1)
+    targets[:, :-1] = torch.where(labels[:, 1:] >= 0, labels[:, 1:], -1)
+    n = (targets >= 0).sum()
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+                         ignore_index=-1, reduction="sum") / n.clamp(min=1)
+    return ce, {"ce": ce, "loss": ce}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,

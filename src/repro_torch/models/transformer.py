@@ -88,6 +88,22 @@ def layer(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
+def layers(stacked: dict) -> list:
+    """Every layer of a stacked parameter tree, as views from one
+    ``unbind`` per leaf. Under autograd this matters: ``unbind``'s backward
+    stacks the layers' gradients once, where ``L`` separate ``v[i]`` would
+    each scatter a gradient into a zero tensor of the whole stack and sum
+    ``L`` of them (O(L²) bytes a leaf)."""
+    n = num_layers(stacked)
+
+    def split(t):
+        if isinstance(t, dict):
+            parts = {k: split(v) for k, v in t.items()}
+            return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+        return t.unbind(0)
+    return split(stacked)
+
+
 def num_layers(stacked: dict) -> int:
     return stacked["ln1"]["scale"].shape[0]
 
@@ -110,9 +126,8 @@ def apply_block(cfg: ModelConfig, p, x, *, positions, impl: Impl):
 
 def apply_stack(cfg: ModelConfig, stacked, x, *, positions, impl: Impl):
     """Walk the layer stack over a whole sequence."""
-    for i in range(num_layers(stacked)):
-        x = apply_block(cfg, layer(stacked, i), x, positions=positions,
-                        impl=impl)
+    for p in layers(stacked):
+        x = apply_block(cfg, p, x, positions=positions, impl=impl)
     return x
 
 

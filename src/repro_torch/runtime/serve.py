@@ -118,9 +118,10 @@ class ServingEngine:
         if all(s is None for s in self.slots):
             return False
         tokens = torch.from_numpy(self.current_token).to(self.device)
-        logits, self.state = decode_step(self.cfg, self.params, self.state,
-                                         tokens, impl=self.impl,
-                                         dtype=self.dtype)
+        with torch.no_grad():
+            logits, self.state = decode_step(self.cfg, self.params, self.state,
+                                             tokens, impl=self.impl,
+                                             dtype=self.dtype)
         nxt = logits[:, -1].argmax(-1).cpu().numpy()      # greedy
         self.ticks += 1
 

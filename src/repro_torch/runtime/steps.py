@@ -1,19 +1,86 @@
-"""Step functions for serving: prefill and decode (the port of the serving
-part of ``repro.runtime.steps``; ``make_train_step`` joins with training).
+"""Step functions: train (microbatched gradient accumulation + AdamW),
+prefill and decode (the port of ``repro.runtime.steps``).
+
+There is no mesh: the reference's ``dp`` and ``grad_specs`` shard the
+microbatch and the gradient accumulator over devices, which one card does
+not have.
 """
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import decode_step, forward
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models import decode_step, forward, loss_fn
 from repro_torch.models.transformer import Impl
+from repro_torch.optim import adamw_update
+from repro_torch.tree import leaves, unflatten_like
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, impl: Impl = Impl()):
+    """→ train_step(params, opt_state, batch) → (params, opt_state, metrics).
+
+    The global batch (``batch["tokens"]`` / ``["labels"]``, (B, S)) is split
+    into B // micro microbatches of ``tcfg.microbatch_size`` rows (B must
+    split evenly, as the reference's reshape demands); the gradients of
+    each microbatch's loss (compute in ``tcfg.dtype``) are summed in f32
+    and divided by their count, and one ``adamw_update`` follows. The
+    parameters require grad for the step only (each leaf's flag is put
+    back as the step found it, so serving a trained state builds no
+    graph) and are updated in place; metrics are {"loss" (mean over
+    microbatches), "lr", "grad_norm"}. The forward, backward and optimizer of each call
+    are ``torch.profiler`` ranges (``train_step.forward`` / ``.backward``
+    / ``.optimizer``), which ``launch/profile_train.py`` reads."""
+    dtype = DTYPES[tcfg.dtype]
+    micro = tcfg.microbatch_size
+
+    def train_step(params, opt_state, batch):
+        B = batch["tokens"].shape[0]
+        n_micro = max(1, B // micro)
+        if B % n_micro:
+            raise ValueError(f"train_step: a batch of {B} rows does not split "
+                             f"into {n_micro} microbatches of {micro}")
+        rows = B // n_micro
+        flat = leaves(params)
+        found = [p.requires_grad for p in flat]
+        for p in flat:
+            p.requires_grad_(True)
+        try:
+            gsum, loss_sum = None, torch.zeros((), device=flat[0].device)
+            for i in range(n_micro):
+                mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                with record_function("train_step.forward"):
+                    loss, _ = loss_fn(cfg, params, mb, impl=impl, dtype=dtype)
+                with record_function("train_step.backward"):
+                    grads = torch.autograd.grad(loss, flat,
+                                                materialize_grads=True)
+                if gsum is None:
+                    gsum = [g.float() for g in grads]
+                else:
+                    for a, g in zip(gsum, grads):
+                        a.add_(g.float())
+                loss_sum += loss.detach()
+                del loss, grads
+        finally:
+            for p, r in zip(flat, found):
+                p.requires_grad_(r)
+        with record_function("train_step.optimizer"):
+            grads = unflatten_like(params, [g.div_(n_micro) for g in gsum])
+            params, opt_state, om = adamw_update(params, grads, opt_state,
+                                                 tcfg.optimizer)
+        return params, opt_state, {"loss": loss_sum / n_micro, **om}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, impl: Impl = Impl(),
                       dtype=torch.bfloat16):
-    """Serving prefill: full-context forward, next-token logits only.
+    """Serving prefill: full-context forward, next-token logits only, under
+    ``no_grad`` (a parameter that requires grad builds no graph).
     → prefill_step(params, {"tokens": (B, S)}) → logits (B, 1, Vp) f32."""
+    @torch.no_grad()
     def prefill_step(params, batch):
         logits, _ = forward(cfg, params, batch, impl=impl, dtype=dtype,
                             last_only=True)
@@ -23,8 +90,10 @@ def make_prefill_step(cfg: ModelConfig, impl: Impl = Impl(),
 
 def make_decode_step(cfg: ModelConfig, impl: Impl = Impl(),
                      dtype=torch.bfloat16):
-    """Serving decode: one token through the cached stack.
+    """Serving decode: one token through the cached stack, under
+    ``no_grad``.
     → serve_step(params, state, token (B, 1)) → (logits (B, 1, Vp), state)."""
+    @torch.no_grad()
     def serve_step(params, state, token):
         return decode_step(cfg, params, state, token, impl=impl, dtype=dtype)
     return serve_step
