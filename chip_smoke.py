@@ -19,49 +19,55 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              plain version at 1e-4 in f32 and 2e-2 in bf16, relative and
              absolute, Dh 64, 80, 128, g 1, 4, 5, each call twice; the SSD
              scan at 1e-4 in f32 and 2e-2 in bf16, relative and absolute,
-             with mamba2-1.3b's decays). Then the repairs: attention under
-             grad runs its forward and backward kernels, a backward through
-             the SSD or decode kernel raises, and 70,000 one-row frames go
-             through ``framing.mac_batch`` bit for bit.
+             with mamba2-1.3b's decays; the SSD backward the same way at
+             mamba2's and zamba2's shapes, ragged lengths, an init state
+             and a final-state gradient, G > 1, each call twice). Then the
+             repairs: attention and the SSD under grad run their forward
+             and backward kernels, a backward through the decode kernel
+             raises, and 70,000 one-row frames go through
+             ``framing.mac_batch`` bit for bit.
 3. prefill — ``runtime.steps.make_prefill_step`` at full width and depth
              (bf16, random weights from a seeded generator), 4 prompts of
-             2048 tokens, for llama3.2-1b and mamba2-1.3b: ms per prefill,
-             prompt tokens/s, peak memory, finite logits; the launch counts
-             are zeroed just before and read just after (16 flash-attention
-             launches per llama call, 48 SSD-scan launches per mamba2 call).
+             2048 tokens, for llama3.2-1b, mamba2-1.3b and zamba2-2.7b: ms
+             per prefill, prompt tokens/s, peak memory, finite logits; the
+             launch counts are zeroed just before and read just after (per
+             call: 16 flash-attention launches for llama, 48 SSD-scan
+             launches for mamba2, 54 SSD and 9 flash for zamba2).
 4. serve   — llama3.2-1b at full width and depth (bf16), max_batch 8,
              max_seq 1024: 12 concurrent lockstep clients and one batch
-             envelope of 8; then mamba2-1.3b the same way with 8 clients.
-             Every request and response is a sealed frame through the
-             service step; a tampered frame must be refused. The launch
-             counts are zeroed just before and read just after; each kernel
-             of the path must be > 0.
-5. train   — the port's ``Trainer`` on llama3.2-1b at full width and depth:
-             f32 parameters and AdamW moments, bf16 compute, 8 x 2048 tokens
-             a step in microbatches of 2, 6 steps at lr 3e-4 (2 warmup) on
-             the synthetic stream: every loss, ms per step and tokens/s after
-             the first step, peak memory; the loss must fall and each layer
-             of each microbatch must launch flash attention's forward and
-             backward kernels once (384 each). Then one 1 x 512 microbatch:
-             loss and gradients through the kernels in bf16 against
-             ``Impl(attention="plain")`` in f32 (loss to 2e-2 relative,
-             every gradient leaf at cosine >= 0.99).
+             envelope of 8; then mamba2-1.3b and zamba2-2.7b the same way
+             with 8 clients. Every request and response is a sealed frame
+             through the service step; a tampered frame must be refused.
+             The launch counts are zeroed just before and read just after;
+             each kernel of the path must be > 0.
+5. train   — the port's ``Trainer`` at full width and depth for the three:
+             f32 parameters and AdamW moments, bf16 compute, 8 x 2048
+             tokens a step in microbatches of 2 (zamba2: 1, the largest
+             that fits), 6 steps at lr 3e-4 (2 warmup) on the synthetic
+             stream: every loss, ms per step and tokens/s after the first
+             step, peak memory; the loss must fall and each attention and
+             mamba block of each microbatch must launch its kernel's
+             forward and backward once (llama 384 flash; mamba2 1152 SSD;
+             zamba2 2592 SSD and 432 flash). Then one 1 x 512 microbatch
+             for llama and mamba2: loss and gradients through the kernels
+             in bf16 against the plain versions in f32 (loss to 2e-2
+             relative, every gradient leaf at cosine >= 0.99).
 6. parity  — in f32 at full width: the llama engine with the decode-attention
              kernel and with its plain version give identical greedy tokens;
              the reduced engine on the card equals it on the CPU; and for
-             both families the forward with the kernels equals the forward
-             with the plain versions, and the last prefill logits equal
-             ``decode_step`` run token by token over the same prompt
+             the three families the forward with the kernels equals the
+             forward with the plain versions, and the last prefill logits
+             equal ``decode_step`` run token by token over the same prompt
              (identical argmax, max abs difference printed).
 
 Then a ``kernels`` JSON line (times from CUDA events, bounds from this
 run's inputs, launches summed over the prefill, serve and train phases;
 the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
-replaced timed in this run; they and the flash backward add
-``kernels_per_call`` from ``torch.profiler`` (1, 3 and 3), the SSD's
-``pass_ms``, flash attention's ``at_dh80`` (zamba2-2.7b's attention) and
-``tensor_core_instr``, the HGMMA/HMMA instructions in the SASS of their
-bf16 kernels; the decode-attention, guard_copy, mac_batch and mac_update
+replaced timed in this run; they and the two backwards add
+``kernels_per_call`` from ``torch.profiler`` (1, 3, 3 and 6), the SSD's
+and its backward's ``pass_ms``, flash attention's ``at_dh80``
+(zamba2-2.7b's attention) and ``tensor_core_instr``, the HGMMA/HMMA
+instructions in the SASS of their bf16 kernels; the decode-attention, guard_copy, mac_batch and mac_update
 rows add ``earlier_ms`` and ``earlier_graph_ms``, the two-launch designs
 they replaced, ``graph_ms``, ms per call under CUDA-graph replay (outputs
 checked against the eager calls bit for bit), and ``kernels_per_call``
@@ -90,6 +96,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; f32 non-tensor
 SEED = 0x5EED1234
 SRC = "src/repro_torch/kernels/csrc"
+# zamba2-2.7b's training microbatch: the largest that fits the card's 80 GB
+# beside f32 parameters, gradients and AdamW moments (~38.7 GB); see PERF.md
+ZAMBA_MICRO = 1
 
 
 def emit(**rec):
@@ -153,13 +162,17 @@ def kernels_per_call(fn, n=10, windows=3):
     one kernel record of a window (19 of 20 and 29 of 30 seen), and can
     never count one that did not run: so each window opens with a warm-up
     step that the profiler discards, and each kernel's count is the largest
-    of ``windows`` windows. The flash and SSD rows round the result in
-    their checks; the line reports it as measured."""
+    of ``windows`` windows. It has also once recorded no kernel at all in
+    three windows of a call that ran (``fn``'s outputs are checked
+    elsewhere): while no window has recorded one, more are taken, up to
+    10. The flash and SSD rows round the result in their checks; the
+    line reports it as measured."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    best = {}
-    for _ in range(windows):
+    best, taken = {}, 0
+    while taken < windows or (not best and taken < 10):
+        taken += 1
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
@@ -231,6 +244,7 @@ def phase_kernels():
     err["flash_attention"] = check_flash(gen)
     err["flash_attention_bwd"] = check_flash_bwd(gen)
     err["ssd_scan"] = check_ssd(gen)
+    err["ssd_scan_bwd"] = check_ssd_bwd(gen)
     frames_on_card_match_cpu()
     repairs = check_repairs(gen)
     torch.cuda.synchronize()
@@ -541,12 +555,12 @@ def check_flash_bwd(gen):
 
 
 def check_repairs(gen):
-    """No gradient is dropped and no batch is refused: ops.attention under
-    grad mode goes through FlashAttention (a grad_fn, one forward and one
-    backward launch); ops.ssd and ops.decode_attention on CUDA inputs that
-    require grad raise; and 70,000 one-row frames through
-    ``framing.mac_batch`` (more than one launch's 65,535) equal the CPU's
-    MACs bit for bit."""
+    """No gradient is dropped and no batch is refused: ops.attention and
+    ops.ssd under grad mode go through FlashAttention and SSDScan (a
+    grad_fn, one forward and one backward launch each, a finite gradient);
+    ops.decode_attention on CUDA inputs that require grad raises; and
+    70,000 one-row frames through ``framing.mac_batch`` (more than one
+    launch's 65,535) equal the CPU's MACs bit for bit."""
     from repro_torch.core import framing
     from repro_torch.kernels import mpk_guard as mg
     from repro_torch.kernels import ops
@@ -563,17 +577,22 @@ def check_repairs(gen):
           f"the differentiable attention did not run its two kernels: {n}")
     x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, 1, 256, 8, 64, 1, 128, torch.bfloat16)
     x.requires_grad_(True)
-    for what, call in (("ssd_scan", lambda: ops.ssd(x, dt, A_log, Bm, Cm, D)),
-                       ("decode_attention", lambda: ops.decode_attention(
-                           q[:, :1].detach().requires_grad_(True), k, v,
-                           qp[:, :1], kp))):
-        try:
-            call()
-            raised = False
-        except RuntimeError as e:
-            raised = "no backward" in str(e)
-        check(raised, f"a backward through the {what} kernel did not raise")
-    check(ops.LAUNCHES.snapshot()["ssd_scan"] == 0, "a refused SSD call launched")
+    ops.LAUNCHES.reset()
+    y, _ = ops.ssd(x, dt, A_log, Bm, Cm, D)
+    check(y.grad_fn is not None, "ops.ssd under grad has no grad_fn")
+    y.float().sum().backward()
+    ns = ops.LAUNCHES.snapshot()
+    check(ns["ssd_scan"] == 1 and ns["ssd_scan_bwd"] == 1 and x.grad is not None
+          and bool(torch.isfinite(x.grad).all()),
+          f"the differentiable SSD did not run its two kernels: {ns}")
+    try:
+        ops.decode_attention(q[:, :1].detach().requires_grad_(True), k, v, qp[:, :1], kp)
+        raised = False
+    except RuntimeError as e:
+        raised = "no backward" in str(e)
+    check(raised, "a backward through the decode_attention kernel did not raise")
+    check(ops.LAUNCHES.snapshot()["decode_attention"] == 0,
+          "a refused decode-attention call launched")
     frames = 70_000
     words = _u32(frames, gen)
     on_card = framing.mac_batch(list(words.view(frames, 1, 128).unbind(0)), SEED)
@@ -581,9 +600,9 @@ def check_repairs(gen):
     on_cpu = framing.mac_batch(list(host.view(frames, 1, 128).unbind(0)), SEED)
     check(frames > mg.MAX_BATCH_FRAMES and on_card == on_cpu,
           "framing.mac_batch over 70,000 frames differs from the CPU")
-    return dict(ssd_backward_raises=True, decode_backward_raises=True,
+    return dict(decode_backward_raises=True,
                 attention_grad_launches=n["flash_attention_bwd"],
-                mac_batch_frames=frames)
+                ssd_grad_launches=ns["ssd_scan_bwd"], mac_batch_frames=frames)
 
 
 def ssd_inputs(gen, B, S, H, P, G, N, dtype):
@@ -663,6 +682,65 @@ def check_ssd(gen):
     return worst
 
 
+def check_ssd_bwd(gen):
+    """The SSD backward's kernels against ``ssd_scan_bwd_plain`` on the same
+    inputs, |got - want| <= tol·(1 + |want|) for every gradient with tol
+    1e-4 in f32 and 2e-2 in bf16, each case twice (identical bits: the sums
+    over heads and chunks run in a fixed order): mamba2-1.3b's training
+    microbatch (2, 2048, 64, 64, N 128) and decays, zamba2-2.7b's heads
+    (80 of 64, N 64), lengths that are not chunk multiples, one step, an
+    init_state and a final-state gradient, G > 1, chunks of 32 and 64.
+    → the worst bf16 absolute error."""
+    from repro_torch.kernels import ssd_scan as ss
+    cases = [  # B, S, H, P, G, N, Q, init, d final
+        (2, 2048, 64, 64, 1, 128, 128, False, False),
+        (1, 2048, 80, 64, 1, 64, 128, False, False),
+        (2, 1000, 16, 64, 4, 128, 128, True, True),
+        (1, 77, 8, 32, 2, 64, 64, False, True),
+        (2, 300, 16, 64, 2, 64, 128, True, False),
+        (2, 1, 16, 64, 2, 128, 128, True, True),
+        (2, 300, 8, 32, 1, 32, 128, False, True),
+        (1, 200, 16, 64, 4, 32, 32, True, True),
+    ]
+    names = ("dx", "ddt", "dA_log", "dB", "dC", "dD", "d_init")
+    worst = 0.0
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for B, S, H, P, G, N, Q, init, dfin in cases:
+            case = (B, S, H, P, G, N, Q, init, dfin, str(dtype))
+            x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, B, S, H, P, G, N, dtype)
+            s0 = (torch.randn((B, H, P, N), generator=gen, device="cuda")
+                  if init else None)
+            dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            df = (torch.randn((B, H, P, N), generator=gen, device="cuda")
+                  if dfin else None)
+            args = (x, dt, A_log, Bm, Cm, D, s0, dy, df)
+            got = ss.ssd_scan_bwd_cuda(*args, chunk=Q)
+            again = ss.ssd_scan_bwd_cuda(*args, chunk=Q)
+            want = ss.ssd_scan_bwd_plain(*args, chunk=Q)
+            for name, g_, a_, w_ in zip(names, got, again, want):
+                if w_ is None:
+                    check(g_ is None, f"ssd_scan_bwd {case}: {name} without an init")
+                    continue
+                check(g_.dtype == w_.dtype and g_.shape == w_.shape,
+                      f"ssd_scan_bwd {case}: {name} {g_.dtype} {tuple(g_.shape)}")
+                check(torch.equal(g_, a_), f"ssd_scan_bwd {case}: a second call's "
+                      f"{name} differs")
+                g32, w32 = g_.float(), w_.float()
+                check(bool(torch.isfinite(g32).all()) and bool(torch.isfinite(w32).all()),
+                      f"ssd_scan_bwd {case}: non-finite {name}")
+                excess = ((g32 - w32).abs() - tol * (1 + w32.abs())).max().item()
+                check(excess <= 0, f"ssd_scan_bwd {case}: {name} over tolerance by "
+                      f"{excess}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, (g32 - w32).abs().max().item())
+            del x, dy, got, again, want
+    x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, 1, 64, 8, 64, 1, 128, torch.bfloat16)
+    refuses(lambda: ss.ssd_scan_bwd_cuda(x, dt, A_log, Bm, Cm, D, None, misaligned(x),
+                                         chunk=64), "ssd_scan_bwd")
+    torch.cuda.empty_cache()
+    return worst
+
+
 def frames_on_card_match_cpu():
     """A frame sealed by the kernels equals the one the plain versions seal
     on the CPU, verifies on the card, and is refused once tampered. A CPU
@@ -707,9 +785,21 @@ GUARD_KERNELS = ("guard_copy", "mac_batch", "mac_init_state", "mac_update",
                  "mac_finalize")
 
 
-def phase_prefill(cfg, kernel, per_call, n_calls=3, B=4, S=2048):
+def layer_kernels(cfg):
+    """{kernel: launches per forward} of a model's layer stack: flash
+    attention once per attention block (every layer of a dense model, each
+    insertion of a hybrid's shared block), the SSD scan once per mamba
+    block."""
+    n_attn = {"dense": cfg.num_layers, "ssm": 0,
+              "hybrid": cfg.num_layers // max(1, cfg.attn_every)}[cfg.family]
+    n_ssd = 0 if cfg.family == "dense" else cfg.num_layers
+    return {k: n for k, n in (("flash_attention", n_attn), ("ssd_scan", n_ssd)) if n}
+
+
+def phase_prefill(cfg, n_calls=3, B=4, S=2048):
     """``make_prefill_step`` at full width and depth in bf16 over B prompts
-    of S tokens; ``kernel`` must launch ``per_call`` times per call."""
+    of S tokens; each kernel of ``layer_kernels`` must launch its count
+    per call."""
     from repro_torch.kernels import ops
     from repro_torch.models import Impl, init_params
     from repro_torch.models.layers import padded_vocab
@@ -731,9 +821,10 @@ def phase_prefill(cfg, kernel, per_call, n_calls=3, B=4, S=2048):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.LAUNCHES.snapshot()
-    check(launches[kernel] == per_call * n_calls,
-          f"{cfg.name} prefill: {launches[kernel]} {kernel} launches in "
-          f"{n_calls} calls, want {per_call} per call")
+    for kernel, per_call in layer_kernels(cfg).items():
+        check(launches[kernel] == per_call * n_calls,
+              f"{cfg.name} prefill: {launches[kernel]} {kernel} launches in "
+              f"{n_calls} calls, want {per_call} per call")
     check(logits.shape == (B, 1, padded_vocab(cfg.vocab_size))
           and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
           f"{cfg.name} prefill: logits {tuple(logits.shape)} not finite")
@@ -758,7 +849,7 @@ def phase_serve(cfg, n_clients=12):
     from repro_torch.runtime import EngineService, encode_prompt
 
     max_new = 32
-    path = GUARD_KERNELS + (("decode_attention",) if cfg.family == "dense" else ())
+    path = GUARD_KERNELS + (("decode_attention",) if cfg.family != "ssm" else ())
     eng = _engine(cfg, torch.bfloat16, 0, 8, 1024)
     svc = EngineService(eng, timeout=600).start()
     rng = torch.Generator().manual_seed(SEED)
@@ -862,8 +953,8 @@ def phase_train(cfg, steps=6, batch=8, seq=2048, micro=2):
     AdamW moments, bf16 compute, a global batch of ``batch`` x ``seq`` in
     microbatches of ``micro``, ``steps`` steps at lr 3e-4 with 2 warmup
     steps on the ``SyntheticDataset``. The launch counts are zeroed just
-    before and read just after; every layer of every microbatch must run
-    flash attention's forward and backward kernels once."""
+    before and read just after; every attention and mamba block of every
+    microbatch must run its kernel's forward and backward once."""
     from repro_torch.configs import OptimizerConfig, TrainConfig
     from repro_torch.kernels import ops
     from repro_torch.runtime import Trainer, TrainReport, make_prefill_step
@@ -887,14 +978,15 @@ def phase_train(cfg, steps=6, batch=8, seq=2048, micro=2):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = ops.LAUNCHES.snapshot()
-    per_run = cfg.num_layers * (batch // micro) * steps
+    runs = (batch // micro) * steps
     losses = report.losses
     check(report.steps_run == steps and all(map(math.isfinite, losses)),
           f"train: {report.steps_run} steps, losses {losses}")
     check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
-    for name in ("flash_attention", "flash_attention_bwd"):
-        check(launches[name] == per_run,
-              f"train: {launches[name]} {name} launches, want {per_run}")
+    for kernel, per_call in layer_kernels(cfg).items():
+        for name in (kernel, f"{kernel}_bwd"):
+            check(launches[name] == per_call * runs,
+                  f"train: {launches[name]} {name} launches, want {per_call * runs}")
     ms = (t2 - t1) / (steps - 1) * 1e3
     emit(phase="train", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          params=sum(p.numel() for p in leaves(state["params"])),
@@ -917,9 +1009,12 @@ def phase_train(cfg, steps=6, batch=8, seq=2048, micro=2):
 
 def phase_grad_parity(cfg, S=512):
     """One microbatch of 1 x ``S`` at full width: loss and gradients
-    through the kernels in bf16 against ``Impl(attention="plain")`` in f32
-    (f32 parameters both times): the loss to 2e-2 relative, and every
-    gradient leaf at cosine >= 0.99 with its f32 counterpart."""
+    through the kernels in bf16 against the plain versions in f32
+    (``Impl(attention="plain", ssd="plain")``, f32 parameters both times):
+    the loss to 2e-2 relative, and every gradient leaf at cosine >= 0.99
+    with its f32 counterpart. ``min_cosine_plain_bf16`` is the same
+    measure for the plain versions in bf16: the share of the bf16 gap that
+    is not the kernels'."""
     from repro_torch.data import SyntheticDataset, to_device
     from repro_torch.models import Impl, init_params, loss_fn
     from repro_torch.tree import leaves_with_paths
@@ -929,13 +1024,18 @@ def phase_grad_parity(cfg, S=512):
     flat = [p.requires_grad_(True) for _, p in leaves_with_paths(params)]
     names = [n for n, _ in leaves_with_paths(params)]
     out = {}
+    plain = Impl(attention="plain", ssd="plain")
     for label, impl, dtype in (("bf16", Impl(), torch.bfloat16),
-                               ("f32", Impl(attention="plain"), torch.float32)):
+                               ("f32", plain, torch.float32),
+                               ("plain_bf16", plain, torch.bfloat16)):
         loss, _ = loss_fn(cfg, params, batch, impl=impl, dtype=dtype)
         grads = torch.autograd.grad(loss, flat)
         out[label] = (loss.item(), grads)
         del loss
     (lb, gb), (lf, gf) = out["bf16"], out["f32"]
+    cos_plain = min(torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0).item()
+        for a, b in zip(out["plain_bf16"][1], gf))
     rel = abs(lb - lf) / abs(lf)
     check(rel <= 2e-2, f"grad parity: bf16 loss {lb} vs f32 {lf} ({rel})")
     cos = {n: torch.nn.functional.cosine_similarity(
@@ -943,7 +1043,8 @@ def phase_grad_parity(cfg, S=512):
         for n, a, b in zip(names, gb, gf)}
     check(all(c >= 0.99 for c in cos.values()), f"grad parity: cosines {cos}")
     emit(phase="grad_parity", arch=cfg.name, batch=1, seq_len=S, loss_bf16=lb,
-         loss_f32=lf, loss_rel_diff=rel, min_cosine=min(cos.values()), cosine=cos)
+         loss_f32=lf, loss_rel_diff=rel, min_cosine=min(cos.values()),
+         min_cosine_plain_bf16=cos_plain, cosine=cos)
     del params, out, gb, gf, flat
     torch.cuda.empty_cache()
 
@@ -1186,6 +1287,7 @@ def kernels_line(cfg, launches, err, attn_inputs):
     rows.append(flash_row(gen, launches, err))
     rows.append(flash_bwd_row(gen, launches, err))
     rows.append(ssd_row(gen, launches, err))
+    rows.append(ssd_bwd_row(gen, launches, err))
     return rows
 
 
@@ -1402,6 +1504,42 @@ def ssd_row(gen, launches, err):
                     "ssd_scan", ("ssd_states_mma", "ssd_output_mma")))
 
 
+def ssd_bwd_row(gen, launches, err):
+    """The SSD backward at mamba2-1.3b's training microbatch: dy over x
+    (2, 2048, 64, 64) bf16, B/C (2, 2048, 1, 128), chunk 128, no init state
+    and no final-state gradient (the training path). The operations are the
+    chunked form's products that the gradients need once each: per chunk
+    and head C·Bᵀ, dy·xᵀ and the three intra products over the Q(Q+1)/2
+    causal pairs, and five Q·N·P products (the recomputed chunk states, the
+    chunks' Σ exp(cum)·dy ⊗ C, and the carry and inter terms of dx, dB,
+    dC); the bytes read x, dt, B, C, dy, A_log and D once and write dx, ddt,
+    dB, dC, dA_log and dD once. A call is six kernels, each also timed
+    alone (``pass_ms``). No single PyTorch call computes it."""
+    from repro_torch.kernels import ssd_scan as ss
+    B, S, H, P, G, N, Q = 2, 2048, 64, 64, 1, 128, 128
+    x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    args = (x, dt, A_log, Bm, Cm, D, None, dy, None)
+    n_chunks = -(-S // Q)
+    ops = 2 * B * H * n_chunks * (Q * (Q + 1) // 2 * (3 * N + 2 * P) + 5 * Q * N * P)
+    nbytes = 2 * (2 * x.numel() + 2 * Bm.numel() + 2 * Cm.numel()) \
+        + 2 * dt.numel() * 4 + 4 * H * 4
+    _, passes = ss.bwd_launches(*args, chunk=Q)
+    kpc = kernels_per_call(lambda: ss.ssd_scan_bwd_cuda(*args, chunk=Q))
+    check(round(kpc) == len(passes),
+          f"ssd_scan_bwd: {kpc} kernels per call, want {len(passes)}")
+    return _row("ssd_scan_bwd", "ssd_scan.cu",
+                "src/repro/kernels/ssd_jnp.py:31 (autodiff of ssd_chunked, no pallas_call)",
+                launches, err,
+                f"dy over x ({B}, {S}, {H}, {P}) bf16, B/C ({B}, {S}, {G}, {N}), chunk {Q}",
+                cuda_ms(lambda: ss.ssd_scan_bwd_cuda(*args, chunk=Q), 20),
+                cuda_ms(lambda: ss.ssd_scan_bwd_plain(*args, chunk=Q), 2),
+                nbytes, ops, "bf16", None, kernels_per_call=kpc,
+                pass_ms={name: cuda_ms(run, 20) for name, run in passes},
+                tensor_core_instr=tensor_core_instr(
+                    "ssd_scan", ("ssd_bwd_mma", "ssd_states_mma")))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a GPU",
@@ -1416,26 +1554,31 @@ def main():
     t0 = time.perf_counter()
     smi = phase_card()
     err = phase_kernels()
-    llama, mamba = get_config("llama3.2-1b"), get_config("mamba2-1.3b")
+    llama, mamba, zamba = (get_config(a) for a in
+                           ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b"))
     launches = {}                            # summed over the main-path runs
 
     def add(counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
-    add(phase_prefill(llama, "flash_attention", llama.num_layers))
-    add(phase_prefill(mamba, "ssd_scan", mamba.num_layers))
+    for cfg in (llama, mamba, zamba):
+        add(phase_prefill(cfg))
     counts, attn_inputs = phase_serve(llama)
     add(counts)
     add(phase_serve(mamba, n_clients=8)[0])
+    add(phase_serve(zamba, n_clients=8)[0])
     add(phase_train(llama))
+    add(phase_train(mamba))
+    add(phase_train(zamba, micro=ZAMBA_MICRO))
     kernels = kernels_line(llama, launches, err, attn_inputs)
     del attn_inputs
     torch.cuda.empty_cache()
     phase_grad_parity(llama)
+    phase_grad_parity(mamba)
     phase_parity(llama)
-    phase_prefill_parity(llama)
-    phase_prefill_parity(mamba)
+    for cfg in (llama, mamba, zamba):
+        phase_prefill_parity(cfg)
     emit(phase="done", wall_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES: Dict[str, str] = {
     "llama3.2-1b": "repro_torch.configs.llama3p2_1b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

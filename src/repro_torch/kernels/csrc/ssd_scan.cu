@@ -483,7 +483,10 @@ size_t states_smem(int P, int N, int Q, int HT) {
          2 * (size_t)Q * P * 2 + (size_t)HT * Q * 4;
 }
 
-// 1. chunk states s_c = (w⊙x)ᵀ·B and decays exp(cum_Q), per (chunk, b, head)
+// 1. chunk states s_c = (w⊙x)ᵀ·B and decays exp(cum_Q), per (chunk, b, head).
+// kBwd: the backward's Σ_i exp(cum_i)·dy_i ⊗ C_i, called with (dy, C) in
+// place of (x, B) and w_i = exp(cum_i) (0 past S); decay is not written.
+template <bool kBwd>
 __global__ void __launch_bounds__(kThreads) ssd_states_mma(
     const bf16* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A_log, const bf16* __restrict__ Bm,
@@ -522,13 +525,19 @@ __global__ void __launch_bounds__(kThreads) ssd_states_mma(
     const double total = warp_cum(wr, -expf(A_log[h]), per, lane, cum);
     float wv[kMaxQ / 32];
 #pragma unroll
-    for (int e = 0; e < kMaxQ / 32; ++e)
-      if (e < per) wv[e] = expf((float)(total - cum[e])) * wr[lane * per + e];
+    for (int e = 0; e < kMaxQ / 32; ++e) {
+      if (e < per) {
+        if (kBwd)
+          wv[e] = lane * per + e < nval ? expf((float)cum[e]) : 0.f;
+        else
+          wv[e] = expf((float)(total - cum[e])) * wr[lane * per + e];
+      }
+    }
     __syncwarp();
 #pragma unroll
     for (int e = 0; e < kMaxQ / 32; ++e)
       if (e < per) wr[lane * per + e] = wv[e];
-    if (lane == 0) decay[((size_t)b * nc + c) * H + h] = expf((float)total);
+    if (!kBwd && lane == 0) decay[((size_t)b * nc + c) * H + h] = expf((float)total);
   }
 
   // warp tile of s_c: p rows 32·wm .. +31, n columns 32·wn .. +31
@@ -876,6 +885,886 @@ int heads_per_tile(int H, int G, int most) {
   return ht;
 }
 
+template <bool kBwd>
+int launch_states(const void* x, const void* dt, const void* A_log, const void* Bm,
+                  void* states, void* decay, int Bb, int S, int H, int G, int P, int N,
+                  int Q, void* stream) {
+  if (!shapes_ok(S, H, G, P, N, Q)) return (int)cudaErrorInvalidValue;
+  const int HT = heads_per_tile(H, G, 4);
+  const size_t smem = states_smem(P, N, Q, HT);
+  cudaError_t e = cudaFuncSetAttribute(ssd_states_mma<kBwd>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + Q - 1) / Q, Bb, H / HT);
+  ssd_states_mma<kBwd><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A_log), static_cast<const bf16*>(Bm),
+      static_cast<float*>(states), static_cast<float*>(decay), S, H, G, P, N, Q, HT);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The backward (the port of JAX's autodiff through ssd_jnp.ssd_chunked,
+// src/repro/kernels/ssd_jnp.py:31). With S_in[c] the state entering chunk c
+// and dS[c] the gradient of the state leaving it (dS[nc-1] = d final):
+//   dS[c-1] = exp(seg_c)·dS[c] + Σ_i exp(cum_i)·dy_i ⊗ C_i,  d init = dS[-1]
+// and per chunk, with e_ij = exp(cum_i − cum_j) masked to i ≥ j before exp:
+//   dx_j  = Σ_i (C_i·B_j)·e_ij·dt_j·dy_i + w_j·dS·B_j + D·dy_j
+//   dB_j  = Σ_i e_ij·dt_j·(dy_i·x_j)·C_i + w_j·x_jᵀ·dS           (w_j = exp(seg − cum_j)·dt_j)
+//   dC_i  = Σ_j e_ij·dt_j·(dy_i·x_j)·B_j + exp(cum_i)·dy_iᵀ·S_in
+//   ddt_j = Σ_i (C_i·B_j)·e_ij·(dy_i·x_j) + exp(seg − cum_j)·x_jᵀ·dS·B_j + A·d(dt·A)_j
+// where d(dt·A) is the reverse in-chunk cumsum of d cum, which collects the
+// derivative of every exponential (intra at i and −j, inter, carry, and
+// exp(seg)·⟨dS, S_in⟩ at the chunk's last step). dB and dC are summed over
+// the heads of a group, dA_log and dD over b and chunks, in a fixed order:
+// no float atomics, so a call repeats bit for bit.
+//
+// Launches (bwd_launches in ssd_scan.py): the forward's chunk states and
+// pass recomputed (S_in per chunk, ~0.2 ms a mamba2 layer against 3.2 GB
+// to keep them for 48 layers); ssd_states_mma<true> for the chunks'
+// Σ exp(cum_i)·dy_i ⊗ C_i; ssd_dstate_pass, the reverse walk over chunks
+// (in place: slot c gets dS[c]); the chunk kernel, one block per (chunk, b,
+// head), writing dx, ddt and per-head dB / dC and per-chunk dA / dD
+// partials; ssd_bwd_finish, the fixed-order sums.
+// Bound on the H100 in bf16 at mamba2's training microbatch (2, 2048, 64,
+// 64, G 1, N 128, Q 128): operations, 3.9e10 (~2.6x the forward's per
+// token: C·Bᵀ, dy·xᵀ and three intra products over the causal pairs, and
+// five Q·N·P products), 0.039 ms at 989 TFLOP/s; bytes read x, dt, B, C,
+// dy and write dx, ddt, dB, dC once.
+// bf16 chunk kernel (ssd_bwd_mma, 8 warps, 183 KB of shared memory at
+// (64, 128, 128); ptxas: 203 registers, no spills): warp w owns the 16 rows of block w twice. As rows j it
+// computes (B·Cᵀ) and (x·dyᵀ) for the column blocks i ≥ j on mma.sync, forms
+// e·dt·(C·B) and e·dt·(dy·x) in registers (the f32 C fragment of m16n8 is
+// the A fragment of k16) and multiplies them into dy (→ dx) and C (→ dB);
+// as rows i, (C·Bᵀ) and (dy·xᵀ) for j ≤ i, into B (→ dC). Warp w has
+// nrb − w column blocks and w + 1 row blocks: the same work for every warp.
+// The carry terms are products with dS and S_in (dS·Bᵀ, x·dS, dy·S_in).
+// Every f32 operand (the formed Q×Q blocks, dS, S_in) enters as a bf16
+// hi + lo pair, as in the forward; x, B, C, dy are bf16 already, products
+// accumulate in f32, cum is scanned in f64 and kept as an f32 hi + lo pair.
+// The f32 instance (ssd_states_f64, ssd_walk_f64, ssd_bwd_cuda_cores) runs the
+// same steps on the CUDA cores in f64, for the 1e-4 check (see below why).
+
+// The sum of v over the block, in a fixed order; every thread gets it.
+// ``red`` holds kThreads / 32 floats.
+__device__ __forceinline__ float block_sum_f32(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += red[w];
+  return t;
+}
+
+// The per-row vectors both chunk kernels fill, [Q] each: dt; the intra
+// terms' share of d cum at i (trow_i = Σ_j T_ij) and at j (tcol_j =
+// Σ_i T_ij, entering with a minus), in f64; the direct part of ddt; the
+// inter terms U_i and the carry terms V_j. Each intra pair enters d cum
+// twice with opposite signs, and the reverse cumsum of d cum cancels every
+// pair that lies on one side of a step: the same f32 T_ij is summed both
+// times and the sums are f64, so the cancellation is exact and only the
+// pairs that cross the step remain (f32 sums leave their rounding there,
+// which at mamba2's decays is larger than what remains).
+struct BwdRows {
+  float* dts;
+  double *trow, *tcol, *ddt_dir, *us, *vs;
+};
+
+// BwdRows in ``base``: five f64 vectors of Q, then dt; 16-byte aligned.
+__host__ __device__ inline size_t bwd_rows_bytes(int Q) { return (size_t)Q * 44; }
+__device__ __forceinline__ BwdRows bwd_rows(void* base, int Q) {
+  double* d = reinterpret_cast<double*>(base);
+  return BwdRows{reinterpret_cast<float*>(d + 5 * Q), d, d + Q, d + 2 * Q, d + 3 * Q,
+                 d + 4 * Q};
+}
+
+// The sum of v over the block in f64, in a fixed order (as block_sum_f32)
+__device__ __forceinline__ double block_sum_f64(double v, double* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  double t = 0.0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += red[w];
+  return t;
+}
+
+// The end of a chunk, by warp 0: d cum (with d seg = Σ V_j + exp(seg)·⟨dS,
+// S_in⟩ at the last step), its reverse cumsum d(dt·A) in f64, ddt for the
+// valid steps, and this chunk's dA = Σ dt·d(dt·A) and dD partials.
+__device__ __forceinline__ void bwd_chunk_tail(const BwdRows& r, int Q, int nval, float A,
+                                               double eseg_dot, double dD_sum, float* ddt,
+                                               size_t ddt_row0, int H, double* dA_part,
+                                               double* dD_part, size_t part) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x, per = Q / 32;
+  double vsum = 0.0;
+  for (int e = 0; e < per; ++e) vsum += (double)r.vs[lane * per + e];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) vsum += __shfl_xor_sync(0xffffffffu, vsum, o);
+  const double dseg = vsum + eseg_dot;
+  double suf[kMaxQ / 32];
+  double run = 0.0;
+#pragma unroll
+  for (int e = kMaxQ / 32 - 1; e >= 0; --e) {
+    if (e < per) {
+      const int t = lane * per + e;
+      run += r.trow[t] - r.tcol[t] + r.us[t] - r.vs[t] + (t == Q - 1 ? dseg : 0.0);
+      suf[e] = run;
+    }
+  }
+  double incl = run;                   // suffix sums over lanes >= this one
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double t = __shfl_down_sync(0xffffffffu, incl, o);
+    if (lane + o < 32) incl += t;
+  }
+  double excl = __shfl_down_sync(0xffffffffu, incl, 1);
+  if (lane == 31) excl = 0.0;
+  double da = 0.0;
+#pragma unroll
+  for (int e = 0; e < kMaxQ / 32; ++e) {
+    if (e < per) {
+      const int t = lane * per + e;
+      const double dla = suf[e] + excl;
+      da += (double)r.dts[t] * dla;
+      if (t < nval) ddt[ddt_row0 + (size_t)t * H] = (float)(r.ddt_dir[t] + (double)A * dla);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) da += __shfl_xor_sync(0xffffffffu, da, o);
+  if (lane == 0) {
+    dA_part[part] = da;
+    dD_part[part] = dD_sum;
+  }
+}
+
+// The reverse pass over chunks, in place: slot c of dstates holds Σ_i
+// exp(cum_i)·dy_i ⊗ C_i of chunk c on entry and dS[c], the gradient of the
+// state leaving chunk c, on exit; dinit (unless NULL) gets the gradient of
+// the initial state. dfinal may be NULL (a zero gradient).
+__global__ void __launch_bounds__(kThreads) ssd_dstate_pass(
+    float* __restrict__ dstates, const float* __restrict__ decay,
+    const float* __restrict__ dfinal, float* __restrict__ dinit, int nc, int H, int PN) {
+  const int b = blockIdx.y;
+  const size_t per_b = (size_t)H * PN;
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= per_b) return;
+  const int h = (int)(i / PN);
+  float4 g = dfinal ? *reinterpret_cast<const float4*>(dfinal + b * per_b + i)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4* p = reinterpret_cast<float4*>(dstates + (size_t)b * nc * per_b + i);
+  const float* dc = decay + (size_t)b * nc * H + h;
+  const size_t step = per_b / 4;
+  float4 next = p[(size_t)(nc - 1) * step];
+  for (int c = nc - 1; c >= 0; --c) {
+    const float4 ds = next;
+    if (c > 0) next = p[(size_t)(c - 1) * step];
+    const float d = dc[(size_t)c * H];
+    p[(size_t)c * step] = g;
+    g = make_float4(d * g.x + ds.x, d * g.y + ds.y, d * g.z + ds.z, d * g.w + ds.w);
+  }
+  if (dinit) *reinterpret_cast<float4*>(dinit + b * per_b + i) = g;
+}
+
+struct BwdSmem {                       // byte offsets of ssd_bwd_mma's shared memory
+  size_t xs, dys, bs, cs, s_hi, s_lo, d_hi, d_lo, cum_hi, cum_lo, rows, red, bytes;
+  __host__ __device__ BwdSmem(int P, int N, int Q) {
+    const size_t row_p = (size_t)(P + kPad) * 2, row_n = (size_t)(N + kPad) * 2;
+    xs = 0;                                  // bf16 [Q][P + kPad]  x
+    dys = xs + Q * row_p;                    //                     dy
+    bs = dys + Q * row_p;                    // bf16 [Q][N + kPad]  B
+    cs = bs + Q * row_n;                     //                     C
+    s_hi = cs + Q * row_n;                   // bf16 [P][N + kPad]  S_in hi, lo
+    s_lo = s_hi + P * row_n;
+    d_hi = s_lo + P * row_n;                 //                     dS hi, lo
+    d_lo = d_hi + P * row_n;
+    cum_hi = d_lo + P * row_n;               // f32 [Q] each: cum hi, lo
+    cum_lo = cum_hi + (size_t)Q * 4;
+    rows = cum_lo + (size_t)Q * 4;           // BwdRows
+    red = rows + bwd_rows_bytes(Q);          // f32 [kThreads / 32]
+    bytes = red + kThreads / 32 * 4;
+  }
+};
+
+// e_ij·v masked to i ≥ j before the exp, cum_i − cum_j from hi + lo pairs
+__device__ __forceinline__ float masked_decay(int i, int j, float hi_i, float lo_i,
+                                              float hi_j, float lo_j) {
+  return ex2(kLog2e * (j <= i ? (hi_i - hi_j) + (lo_i - lo_j) : -INFINITY));
+}
+
+// (8 f32 values of a 16x16 C-fragment pair) → A fragment as bf16 hi + lo
+__device__ __forceinline__ void frag_hi_lo(const float (&v)[8], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) split_bf16(v[2 * q], v[2 * q + 1], hi[q], lo[q]);
+}
+
+// acc (16 x 16) = rows [r0, r0+16) of A (row-major, lda) times rows
+// [c0, c0+16) of Bt (row-major, ldb), both bf16 over k in [0, K): A·Btᵀ
+__device__ __forceinline__ void mma_abt(float (&acc)[2][4], const bf16* A, int lda, int r0,
+                                        const bf16* Bt, int ldb, int c0, int K, int lane) {
+  const int mat = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[u][e] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t a[4], bb[4];
+    ldsm_x4(a, A + (r0 + r8 + (mat & 1) * 8) * lda + k0 + (mat >> 1) * 8);
+    ldsm_x4(bb, Bt + (c0 + r8 + (mat >> 1) * 8) * ldb + k0 + (mat & 1) * 8);
+    mma_bf16(acc[0], a, bb[0], bb[1]);
+    mma_bf16(acc[1], a, bb[2], bb[3]);
+  }
+}
+
+// acc[nt] (16 x 8 each, nt < W / 8 <= NT) += A fragment (hi + lo) · rows
+// [k0, k0+16) of M (row-major [k][n], ld), the n columns [0, W)
+template <int NT>
+__device__ __forceinline__ void mma_frag_rows(float (&acc)[NT][4], const uint32_t (&ah)[4],
+                                              const uint32_t (&al)[4], const bf16* M, int ld,
+                                              int k0, int W, int lane) {
+  const int mat = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    if (16 * np < W) {
+      uint32_t bx[4];
+      ldsm_x4_t(bx, M + (k0 + r8 + (mat & 1) * 8) * ld + 16 * np + (mat >> 1) * 8);
+      mma_bf16(acc[2 * np], ah, bx[0], bx[1]);
+      mma_bf16(acc[2 * np + 1], ah, bx[2], bx[3]);
+      mma_bf16(acc[2 * np], al, bx[0], bx[1]);
+      mma_bf16(acc[2 * np + 1], al, bx[2], bx[3]);
+    }
+  }
+}
+
+// acc[nt] += rows [r0, r0+16) of A (bf16 row-major [r][k], lda) · (Mh + Ml)
+// over k in [0, K), M row-major [k][n] with n in [0, W); trans: M is [n][k]
+template <int NT>
+__device__ __forceinline__ void mma_rows_hilo(float (&acc)[NT][4], const bf16* A, int lda,
+                                              int r0, const bf16* Mh, const bf16* Ml, int ld,
+                                              int K, int W, bool trans, int lane) {
+  const int mat = lane >> 3, r8 = lane & 7;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, A + (r0 + r8 + (mat & 1) * 8) * lda + k0 + (mat >> 1) * 8);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      if (16 * np < W) {
+        uint32_t bh[4], bl[4];
+        if (trans) {                   // M [n][k]: the B fragment without a transpose
+          const int off = (16 * np + r8 + (mat >> 1) * 8) * ld + k0 + (mat & 1) * 8;
+          ldsm_x4(bh, Mh + off);
+          ldsm_x4(bl, Ml + off);
+        } else {
+          const int off = (k0 + r8 + (mat & 1) * 8) * ld + 16 * np + (mat >> 1) * 8;
+          ldsm_x4_t(bh, Mh + off);
+          ldsm_x4_t(bl, Ml + off);
+        }
+        mma_bf16(acc[2 * np], a, bh[0], bh[1]);
+        mma_bf16(acc[2 * np + 1], a, bh[2], bh[3]);
+        mma_bf16(acc[2 * np], a, bl[0], bl[1]);
+        mma_bf16(acc[2 * np + 1], a, bl[2], bl[3]);
+      }
+    }
+  }
+}
+
+// Σ over this lane's columns of a 16 x W fragment row pair (rows g4 and
+// g4 + 8) times bf16 row vectors va / vb, summed over the quad.
+template <int NT>
+__device__ __forceinline__ void frag_row_dots(const float (&acc)[NT][4], const bf16* va,
+                                              const bf16* vb, int W, int t4, float& sa,
+                                              float& sb) {
+  sa = 0.f;
+  sb = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (8 * nt < W) {
+      const int n = 8 * nt + 2 * t4;
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(va + n));
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vb + n));
+      sa += acc[nt][0] * a.x + acc[nt][1] * a.y;
+      sb += acc[nt][2] * b.x + acc[nt][3] * b.y;
+    }
+  }
+  sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+  sa += __shfl_xor_sync(0xffffffffu, sa, 2);
+  sb += __shfl_xor_sync(0xffffffffu, sb, 1);
+  sb += __shfl_xor_sync(0xffffffffu, sb, 2);
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+}
+
+template <int NT>
+__device__ __forceinline__ void scale_rows(float (&acc)[NT][4], float sa, float sb) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    acc[nt][0] *= sa;
+    acc[nt][1] *= sa;
+    acc[nt][2] *= sb;
+    acc[nt][3] *= sb;
+  }
+}
+
+// rows ra and ra + 8 (if < nval) of a 16 x W f32 fragment into out (f32,
+// row stride ld)
+template <int NT>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[NT][4], float* out,
+                                               size_t ld, int ra, int nval, int W, int t4) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (8 * nt < W) {
+      const int n = 8 * nt + 2 * t4;
+      if (ra < nval)
+        *reinterpret_cast<float2*>(out + ra * ld + n) = make_float2(acc[nt][0], acc[nt][1]);
+      if (ra + 8 < nval)
+        *reinterpret_cast<float2*>(out + (ra + 8) * ld + n) =
+            make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+}
+
+// The bf16 chunk kernel, one block per (chunk, b, head).
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_mma(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ A_log, const bf16* __restrict__ Bm,
+    const bf16* __restrict__ Cm, const float* __restrict__ Dp, const bf16* __restrict__ dy,
+    const float* __restrict__ s_in, const float* __restrict__ ds_out,
+    bf16* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dB_part,
+    float* __restrict__ dC_part, double* __restrict__ dA_part, double* __restrict__ dD_part,
+    int S, int H, int G, int P, int N, int Q) {
+  extern __shared__ float4 smem_bwd[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(smem_bwd);
+  const BwdSmem L(P, N, Q);
+  const int ldp = P + kPad, ldn = N + kPad;
+  bf16* xs = reinterpret_cast<bf16*>(base + L.xs);
+  bf16* dys = reinterpret_cast<bf16*>(base + L.dys);
+  bf16* bs = reinterpret_cast<bf16*>(base + L.bs);
+  bf16* cs = reinterpret_cast<bf16*>(base + L.cs);
+  bf16* s_hi = reinterpret_cast<bf16*>(base + L.s_hi);
+  bf16* s_lo = reinterpret_cast<bf16*>(base + L.s_lo);
+  bf16* d_hi = reinterpret_cast<bf16*>(base + L.d_hi);
+  bf16* d_lo = reinterpret_cast<bf16*>(base + L.d_lo);
+  float* cum_hi = reinterpret_cast<float*>(base + L.cum_hi);
+  float* cum_lo = reinterpret_cast<float*>(base + L.cum_lo);
+  const BwdRows R = bwd_rows(base + L.rows, Q);
+  float* red = reinterpret_cast<float*>(base + L.red);
+
+  const int c = blockIdx.x, b = blockIdx.y, h = blockIdx.z, nc = gridDim.x;
+  const int g = h / (H / G);
+  const int s0 = c * Q, nval = min(Q, S - s0), nrb = Q / 16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+
+  const size_t xo = (((size_t)b * S + s0) * H + h) * P;
+  const size_t bo = (((size_t)b * S + s0) * G + g) * N;
+  copy_rows(xs, ldp, x + xo, (size_t)H * P, Q, nval, P);
+  copy_rows(dys, ldp, dy + xo, (size_t)H * P, Q, nval, P);
+  copy_rows(bs, ldn, Bm + bo, (size_t)G * N, Q, nval, N);
+  copy_rows(cs, ldn, Cm + bo, (size_t)G * N, Q, nval, N);
+  cp_async_commit();
+  const size_t so = (((size_t)b * nc + c) * H + h) * P * N;
+  float dot = 0.f;                     // ⟨dS, S_in⟩
+  for (int i = tid; i < P * N / 4; i += kThreads) {
+    const int p = i / (N / 4), e = (i - p * (N / 4)) * 4;
+    const float4 sv = *reinterpret_cast<const float4*>(s_in + so + 4 * (size_t)i);
+    const float4 dv = *reinterpret_cast<const float4*>(ds_out + so + 4 * (size_t)i);
+    dot += dv.x * sv.x + dv.y * sv.y + dv.z * sv.z + dv.w * sv.w;
+    uint2 hi, lo;
+    split_bf16(sv.x, sv.y, hi.x, lo.x);
+    split_bf16(sv.z, sv.w, hi.y, lo.y);
+    *reinterpret_cast<uint2*>(s_hi + p * ldn + e) = hi;
+    *reinterpret_cast<uint2*>(s_lo + p * ldn + e) = lo;
+    split_bf16(dv.x, dv.y, hi.x, lo.x);
+    split_bf16(dv.z, dv.w, hi.y, lo.y);
+    *reinterpret_cast<uint2*>(d_hi + p * ldn + e) = hi;
+    *reinterpret_cast<uint2*>(d_lo + p * ldn + e) = lo;
+  }
+  for (int i = tid; i < Q; i += kThreads)
+    R.dts[i] = i < nval ? dt[((size_t)b * S + s0 + i) * H + h] : 0.f;
+  __syncthreads();
+  const float A = -expf(A_log[h]);
+  if (warp == 0) {
+    double cv[kMaxQ / 32];
+    const int per = Q / 32;
+    warp_cum(R.dts, A, per, lane, cv);
+#pragma unroll
+    for (int e = 0; e < kMaxQ / 32; ++e) {
+      if (e < per) {
+        const float hi = (float)cv[e];
+        cum_hi[lane * per + e] = hi;
+        cum_lo[lane * per + e] = (float)(cv[e] - (double)hi);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  const float dot_all = block_sum_f32(dot, red);
+  float dd = 0.f;                      // dD: Σ dy·x over the chunk
+  for (int i = tid; i < nval * P / 2; i += kThreads) {
+    const int j = i / (P / 2), p = (i - j * (P / 2)) * 2;
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + j * ldp + p));
+    const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dys + j * ldp + p));
+    dd += a.x * d.x + a.y * d.y;
+  }
+  const float dD_all = block_sum_f32(dd, red);
+  const float seg_hi = cum_hi[Q - 1], seg_lo = cum_lo[Q - 1];
+
+  if (warp < nrb) {
+    const int r0 = 16 * warp, ra = r0 + g4, rb = ra + 8;
+    const float hia = cum_hi[ra], loa = cum_lo[ra], hib = cum_hi[rb], lob = cum_lo[rb];
+    float acc_p[kMaxP / 8][4], acc_n[kMaxN / 8][4];   // [n8 tile][fragment]: dx; dB, dC
+
+    // ---- rows j: dx and dB ----
+    {
+      const float dta = R.dts[ra], dtb = R.dts[rb];
+      const float era = ex2(kLog2e * ((seg_hi - hia) + (seg_lo - loa)));   // exp(seg − cum_j)
+      const float erb = ex2(kLog2e * ((seg_hi - hib) + (seg_lo - lob)));
+      // carry: dS·B_j (rows j, columns p); its dot with x_j
+      zero_acc(acc_p);
+      mma_rows_hilo(acc_p, bs, ldn, r0, d_hi, d_lo, ldn, N, P, true, lane);
+      float xa, xb;
+      frag_row_dots(acc_p, xs + ra * ldp, xs + rb * ldp, P, t4, xa, xb);
+      scale_rows(acc_p, era * dta, erb * dtb);
+      // carry: x_jᵀ·dS (rows j, columns n)
+      zero_acc(acc_n);
+      mma_rows_hilo(acc_n, xs, ldp, r0, d_hi, d_lo, ldn, P, N, false, lane);
+      scale_rows(acc_n, era * dta, erb * dtb);
+      // intra, column blocks i ≥ j: T_ij = (C_i·B_j)·e_ij·(dy_i·x_j)·dt_j
+      float ta = 0.f, tb = 0.f;        // Σ_i T_ij / dt_j (the direct ddt)
+      double Ta = 0.0, Tb = 0.0;       // Σ_i T_ij
+      for (int ib = warp; ib < nrb; ++ib) {
+        float cbt[2][4], dyx[2][4];
+        mma_abt(cbt, bs, ldn, r0, cs, ldn, 16 * ib, N, lane);   // B_j·C_i
+        mma_abt(dyx, xs, ldp, r0, dys, ldp, 16 * ib, P, lane);  // x_j·dy_i
+        float gv[8], dv[8];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = 16 * ib + 8 * u + 2 * t4;
+          const float2 hi = *reinterpret_cast<const float2*>(cum_hi + i);
+          const float2 lo = *reinterpret_cast<const float2*>(cum_lo + i);
+          const float e[4] = {masked_decay(i, ra, hi.x, lo.x, hia, loa),
+                              masked_decay(i + 1, ra, hi.y, lo.y, hia, loa),
+                              masked_decay(i, rb, hi.x, lo.x, hib, lob),
+                              masked_decay(i + 1, rb, hi.y, lo.y, hib, lob)};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float dtj = q < 2 ? dta : dtb;
+            const float ce = cbt[u][q] * e[q], t = ce * dyx[u][q];
+            gv[4 * u + q] = ce * dtj;
+            dv[4 * u + q] = e[q] * dtj * dyx[u][q];
+            if (q < 2) {
+              ta += t;
+              Ta += (double)(t * dtj);
+            } else {
+              tb += t;
+              Tb += (double)(t * dtj);
+            }
+          }
+        }
+        uint32_t gh[4], gl[4], dh[4], dl[4];
+        frag_hi_lo(gv, gh, gl);
+        frag_hi_lo(dv, dh, dl);
+        mma_frag_rows(acc_p, gh, gl, dys, ldp, 16 * ib, P, lane);
+        mma_frag_rows(acc_n, dh, dl, cs, ldn, 16 * ib, N, lane);
+      }
+      ta += __shfl_xor_sync(0xffffffffu, ta, 1);
+      ta += __shfl_xor_sync(0xffffffffu, ta, 2);
+      tb += __shfl_xor_sync(0xffffffffu, tb, 1);
+      tb += __shfl_xor_sync(0xffffffffu, tb, 2);
+      Ta += __shfl_xor_sync(0xffffffffu, Ta, 1);
+      Ta += __shfl_xor_sync(0xffffffffu, Ta, 2);
+      Tb += __shfl_xor_sync(0xffffffffu, Tb, 1);
+      Tb += __shfl_xor_sync(0xffffffffu, Tb, 2);
+      if (t4 == 0) {
+        R.ddt_dir[ra] = ta + era * xa;
+        R.ddt_dir[rb] = tb + erb * xb;
+        R.tcol[ra] = Ta;
+        R.tcol[rb] = Tb;
+        R.vs[ra] = era * dta * xa;
+        R.vs[rb] = erb * dtb * xb;
+      }
+      const float Dh = Dp[h];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (8 * nt < P) {
+          const int p = 8 * nt + 2 * t4;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int j = ra + 8 * half;
+            if (j < nval) {
+              const float2 d = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(dys + j * ldp + p));
+              *reinterpret_cast<uint32_t*>(dx + xo + (size_t)j * H * P + p) =
+                  pack_bf16(acc_p[nt][2 * half] + Dh * d.x, acc_p[nt][2 * half + 1] + Dh * d.y);
+            }
+          }
+        }
+      }
+      store_rows_f32(acc_n, dB_part + (((size_t)b * S + s0) * H + h) * N, (size_t)H * N, ra,
+                     nval, N, t4);
+    }
+
+    // ---- rows i: dC ----
+    {
+      const float eca = ex2(kLog2e * (hia + loa)), ecb = ex2(kLog2e * (hib + lob));
+      zero_acc(acc_n);                 // inter: exp(cum_i)·dy_iᵀ·S_in, and its dot with C_i
+      mma_rows_hilo(acc_n, dys, ldp, r0, s_hi, s_lo, ldn, P, N, false, lane);
+      scale_rows(acc_n, eca, ecb);
+      float ua, ub;
+      frag_row_dots(acc_n, cs + ra * ldn, cs + rb * ldn, N, t4, ua, ub);
+      double Ta = 0.0, Tb = 0.0;       // Σ_j T_ij, each T_ij as the columns form it
+      for (int jb = 0; jb <= warp; ++jb) {
+        float cb[2][4], dyx[2][4];
+        mma_abt(cb, cs, ldn, r0, bs, ldn, 16 * jb, N, lane);    // C_i·B_j
+        mma_abt(dyx, dys, ldp, r0, xs, ldp, 16 * jb, P, lane);  // dy_i·x_j
+        float dv[8];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int j = 16 * jb + 8 * u + 2 * t4;
+          const float2 hi = *reinterpret_cast<const float2*>(cum_hi + j);
+          const float2 lo = *reinterpret_cast<const float2*>(cum_lo + j);
+          const float2 dtj = *reinterpret_cast<const float2*>(R.dts + j);
+          const float e[4] = {masked_decay(ra, j, hia, loa, hi.x, lo.x),
+                              masked_decay(ra, j + 1, hia, loa, hi.y, lo.y),
+                              masked_decay(rb, j, hib, lob, hi.x, lo.x),
+                              masked_decay(rb, j + 1, hib, lob, hi.y, lo.y)};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float dt_q = q & 1 ? dtj.y : dtj.x;
+            const float t = cb[u][q] * e[q] * dyx[u][q];
+            dv[4 * u + q] = e[q] * dt_q * dyx[u][q];
+            if (q < 2) Ta += (double)(t * dt_q); else Tb += (double)(t * dt_q);
+          }
+        }
+        uint32_t dh[4], dl[4];
+        frag_hi_lo(dv, dh, dl);
+        mma_frag_rows(acc_n, dh, dl, bs, ldn, 16 * jb, N, lane);
+      }
+      Ta += __shfl_xor_sync(0xffffffffu, Ta, 1);
+      Ta += __shfl_xor_sync(0xffffffffu, Ta, 2);
+      Tb += __shfl_xor_sync(0xffffffffu, Tb, 1);
+      Tb += __shfl_xor_sync(0xffffffffu, Tb, 2);
+      if (t4 == 0) {
+        R.trow[ra] = Ta;
+        R.trow[rb] = Tb;
+        R.us[ra] = ua;
+        R.us[rb] = ub;
+      }
+      store_rows_f32(acc_n, dC_part + (((size_t)b * S + s0) * H + h) * N, (size_t)H * N, ra,
+                     nval, N, t4);
+    }
+  }
+  __syncthreads();
+  const double eseg = exp((double)seg_hi + (double)seg_lo);
+  bwd_chunk_tail(R, Q, nval, A, eseg * dot_all, dD_all, ddt, ((size_t)b * S + s0) * H + h, H,
+                 dA_part, dD_part, ((size_t)b * nc + c) * H + h);
+}
+
+// ---- the f32 instance, on the CUDA cores ----
+// At mamba2's decays ddt_j is the sum of parts ~1e3 times larger than it
+// (the direct term, x_j·dS·B_j, and A·d(dt·A) with A up to 64), which take
+// the rounding of every f32 intermediate (the chunk states, dS, C·B, dy·x,
+// the decays) to ~1e-3 absolute: two f32 evaluations in another order do
+// not agree to 1e-4 there. So the f32 instance computes in f64 from its f32
+// inputs, chunk states and dS included, and rounds each gradient once.
+
+// Chunk states in f64, one block per (chunk, b, head): s_c = (w⊙x)ᵀ·B and
+// decays exp(cum_Q); kBwd: Σ_i exp(cum_i)·dy_i ⊗ C_i (no decays).
+template <bool kBwd>
+__global__ void __launch_bounds__(kThreads) ssd_states_f64(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ A_log, const float* __restrict__ Bm,
+    double* __restrict__ states, double* __restrict__ decay, int S, int H, int G, int P,
+    int N, int Q) {
+  extern __shared__ float4 smem_sf[];
+  double* ws = reinterpret_cast<double*>(smem_sf);  // [Q]: w
+  float* xf = reinterpret_cast<float*>(ws + Q);     // [Q][P]
+  float* bf = xf + Q * P;                           // [Q][N]
+  float* dts = bf + Q * N;                          // [Q]
+  const int c = blockIdx.x, b = blockIdx.y, h = blockIdx.z, nc = gridDim.x;
+  const int g = h / (H / G), s0 = c * Q, nval = min(Q, S - s0);
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int i = tid; i < Q * P; i += kThreads) {
+    const int j = i / P, p = i - j * P;
+    xf[i] = j < nval ? x[(((size_t)b * S + s0 + j) * H + h) * P + p] : 0.f;
+  }
+  for (int i = tid; i < Q * N; i += kThreads) {
+    const int j = i / N, n = i - j * N;
+    bf[i] = j < nval ? Bm[(((size_t)b * S + s0 + j) * G + g) * N + n] : 0.f;
+  }
+  for (int i = tid; i < Q; i += kThreads)
+    dts[i] = i < nval ? dt[((size_t)b * S + s0 + i) * H + h] : 0.f;
+  __syncthreads();
+  if (tid < 32) {
+    const int per = Q / 32;
+    double cum[kMaxQ / 32];
+    const double total = warp_cum(dts, -expf(A_log[h]), per, lane, cum);
+    for (int e = 0; e < per; ++e) {
+      const int t = lane * per + e;
+      ws[t] = kBwd ? (t < nval ? exp(cum[e]) : 0.0) : exp(total - cum[e]) * (double)dts[t];
+    }
+    if (!kBwd && lane == 0) decay[((size_t)b * nc + c) * H + h] = exp(total);
+  }
+  __syncthreads();
+  double* dst = states + (((size_t)b * nc + c) * H + h) * P * N;
+  for (int i = tid; i < P * N; i += kThreads) {
+    const int p = i / N, n = i - p * N;
+    double s = 0.0;
+    for (int j = 0; j < Q; ++j) s += ws[j] * (double)xf[j * P + p] * (double)bf[j * N + n];
+    dst[i] = s;
+  }
+}
+
+// The walk over chunks in f64, per (b, state element). Forward: slot c
+// becomes S_in[c] (from init, or 0); reverse: slot c becomes dS[c] (from
+// dfinal, or 0) and ``out`` (unless NULL) gets d init.
+template <bool kReverse>
+__global__ void __launch_bounds__(kThreads) ssd_walk_f64(
+    double* __restrict__ st, const double* __restrict__ decay, const float* __restrict__ in,
+    float* __restrict__ out, int nc, int H, int PN) {
+  const int b = blockIdx.y;
+  const size_t per_b = (size_t)H * PN;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= per_b) return;
+  const int h = (int)(i / PN);
+  double v = in ? (double)in[b * per_b + i] : 0.0;
+  double* p = st + (size_t)b * nc * per_b + i;
+  const double* dc = decay + (size_t)b * nc * H + h;
+  for (int k = 0; k < nc; ++k) {
+    const int c = kReverse ? nc - 1 - k : k;
+    const double s_c = p[(size_t)c * per_b];
+    p[(size_t)c * per_b] = v;
+    v = dc[(size_t)c * H] * v + s_c;
+  }
+  if (kReverse && out) out[b * per_b + i] = (float)v;
+}
+
+// The f32 chunk kernel, one block per (chunk, b, head), in f64: C_i·B_j and
+// dy_i·x_j for i ≥ j in shared memory (packed lower triangles), then each
+// output as a plain loop; x, dy, B, C, S_in and dS read through the cache.
+__global__ void __launch_bounds__(kThreads) ssd_bwd_cuda_cores(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ A_log, const float* __restrict__ Bm,
+    const float* __restrict__ Cm, const float* __restrict__ Dp, const float* __restrict__ dy,
+    const double* __restrict__ s_in, const double* __restrict__ ds_out,
+    float* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dB_part,
+    float* __restrict__ dC_part, double* __restrict__ dA_part, double* __restrict__ dD_part,
+    int S, int H, int G, int P, int N, int Q) {
+  extern __shared__ float4 smem_bf32[];
+  double* cum = reinterpret_cast<double*>(smem_bf32);   // [Q]
+  const BwdRows R = bwd_rows(cum + Q, Q);
+  double* cb = cum + Q + bwd_rows_bytes(Q) / 8;          // packed [i(i+1)/2 + j]: C_i·B_j
+  double* dyx = cb + Q * (Q + 1) / 2;                    //                        dy_i·x_j
+  double* red = dyx + Q * (Q + 1) / 2;                   // [kThreads / 32]
+
+  const int c = blockIdx.x, b = blockIdx.y, h = blockIdx.z, nc = gridDim.x;
+  const int g = h / (H / G), s0 = c * Q, nval = min(Q, S - s0);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const float A = -expf(A_log[h]);
+  const double Dh = Dp[h];
+  const size_t xo = (((size_t)b * S + s0) * H + h) * P, xl = (size_t)H * P;
+  const size_t bo = (((size_t)b * S + s0) * G + g) * N, bl = (size_t)G * N;
+  const size_t so = (((size_t)b * nc + c) * H + h) * P * N;
+  const float* X = x + xo;
+  const float* DY = dy + xo;
+  const float* BB = Bm + bo;
+  const float* CC = Cm + bo;
+  const double* SI = s_in + so;
+  const double* DS = ds_out + so;
+  auto tri = [](int i, int j) { return i * (i + 1) / 2 + j; };
+
+  for (int i = tid; i < Q; i += kThreads)
+    R.dts[i] = i < nval ? dt[((size_t)b * S + s0 + i) * H + h] : 0.f;
+  __syncthreads();
+  if (tid < 32) {
+    double cv[kMaxQ / 32];
+    const int per = Q / 32;
+    warp_cum(R.dts, A, per, lane, cv);
+    for (int e = 0; e < per; ++e) cum[lane * per + e] = cv[e];
+  }
+  for (int idx = tid; idx < Q * (Q + 1) / 2; idx += kThreads) {
+    int i = (int)((sqrt(8.0 * idx + 1.0) - 1.0) / 2.0);
+    while (tri(i + 1, 0) <= idx) ++i;
+    while (tri(i, 0) > idx) --i;
+    const int j = idx - tri(i, 0);
+    double s1 = 0.0, s2 = 0.0;
+    if (i < nval) {
+      for (int n = 0; n < N; ++n) s1 += (double)CC[i * bl + n] * (double)BB[j * bl + n];
+      for (int p = 0; p < P; ++p) s2 += (double)DY[i * xl + p] * (double)X[j * xl + p];
+    }
+    cb[idx] = s1;
+    dyx[idx] = s2;
+  }
+  __syncthreads();
+  const double seg = cum[Q - 1];
+  // T_ij = (C_i·B_j)·e_ij·(dy_i·x_j)·dt_j
+  if (tid < Q) {                       // columns j: direct ddt, Σ_i T_ij
+    const int j = tid;
+    double t = 0.0;
+    for (int i = j; i < Q; ++i) t += cb[tri(i, j)] * exp(cum[i] - cum[j]) * dyx[tri(i, j)];
+    R.ddt_dir[j] = t;
+    R.tcol[j] = t * R.dts[j];
+  } else if (tid < 2 * Q) {            // rows i: Σ_j T_ij
+    const int i = tid - Q;
+    double t = 0.0;
+    for (int j = 0; j <= i; ++j)
+      t += cb[tri(i, j)] * exp(cum[i] - cum[j]) * dyx[tri(i, j)] * R.dts[j];
+    R.trow[i] = t;
+  }
+  __syncthreads();
+  if (tid < Q) {                       // carry at j: x_jᵀ·dS·B_j; inter at i: dy_iᵀ·S_in·C_i
+    const int j = tid;
+    double xr = 0.0, ur = 0.0;
+    if (j < nval) {
+      for (int p = 0; p < P; ++p) {
+        double sb = 0.0, sc = 0.0;
+        for (int n = 0; n < N; ++n) {
+          sb += DS[p * N + n] * BB[j * bl + n];
+          sc += SI[p * N + n] * CC[j * bl + n];
+        }
+        xr += X[j * xl + p] * sb;
+        ur += DY[j * xl + p] * sc;
+      }
+    }
+    const double er = exp(seg - cum[j]);
+    R.ddt_dir[j] += er * xr;
+    R.vs[j] = er * R.dts[j] * xr;
+    R.us[j] = exp(cum[j]) * ur;
+  }
+  for (int idx = tid; idx < nval * P; idx += kThreads) {   // dx
+    const int j = idx / P, p = idx - j * P;
+    double s = 0.0, r6 = 0.0;
+    for (int i = j; i < nval; ++i)
+      s += cb[tri(i, j)] * exp(cum[i] - cum[j]) * (double)DY[i * xl + p];
+    for (int n = 0; n < N; ++n) r6 += BB[j * bl + n] * DS[p * N + n];
+    const double w = exp(seg - cum[j]) * R.dts[j];
+    dx[xo + j * xl + p] = (float)(s * R.dts[j] + w * r6 + Dh * DY[j * xl + p]);
+  }
+  for (int idx = tid; idx < nval * N; idx += kThreads) {   // dB, dC of this head
+    const int j = idx / N, n = idx - j * N;
+    double sb = 0.0, sc = 0.0, r7 = 0.0, r8 = 0.0;
+    for (int i = j; i < nval; ++i)
+      sb += exp(cum[i] - cum[j]) * dyx[tri(i, j)] * (double)CC[i * bl + n];
+    for (int k = 0; k <= j; ++k)
+      sc += exp(cum[j] - cum[k]) * R.dts[k] * dyx[tri(j, k)] * (double)BB[k * bl + n];
+    for (int p = 0; p < P; ++p) {
+      r7 += X[j * xl + p] * DS[p * N + n];
+      r8 += DY[j * xl + p] * SI[p * N + n];
+    }
+    const size_t o = (((size_t)b * S + s0 + j) * H + h) * N + n;
+    dB_part[o] = (float)(sb * R.dts[j] + exp(seg - cum[j]) * R.dts[j] * r7);
+    dC_part[o] = (float)(sc + exp(cum[j]) * r8);
+  }
+  double dot = 0.0, dd = 0.0;
+  for (int i = tid; i < P * N; i += kThreads) dot += DS[i] * SI[i];
+  for (int i = tid; i < nval * P; i += kThreads) {
+    const int j = i / P, p = i - j * P;
+    dd += (double)DY[j * xl + p] * (double)X[j * xl + p];
+  }
+  const double dot_all = block_sum_f64(dot, red);
+  const double dD_all = block_sum_f64(dd, red);
+  __syncthreads();
+  bwd_chunk_tail(R, Q, nval, A, exp(seg) * dot_all, dD_all, ddt, ((size_t)b * S + s0) * H + h,
+                 H, dA_part, dD_part, ((size_t)b * nc + c) * H + h);
+}
+
+// dB, dC: the per-head partials summed over the heads of each group, in
+// order, in the inputs' dtype; dA_log = A·Σ dA and dD = Σ dD over the
+// (b, chunk) partials, in order, by block 0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_finish(
+    const float* __restrict__ dB_part, const float* __restrict__ dC_part,
+    const double* __restrict__ dA_part, const double* __restrict__ dD_part,
+    const float* __restrict__ A_log, T* __restrict__ dB, T* __restrict__ dC,
+    float* __restrict__ dA_log, float* __restrict__ dD, int BS, int H, int G, int N,
+    int parts) {
+  const int R = H / G;
+  const size_t total = (size_t)BS * G * N;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    const int n = (int)(idx % N);
+    const size_t rest = idx / N;
+    const int g = (int)(rest % G);
+    const size_t bs = rest / G;
+    const size_t o = (bs * H + (size_t)g * R) * N + n;
+    float sb = 0.f, sc = 0.f;
+    for (int r = 0; r < R; ++r) {
+      sb += dB_part[o + (size_t)r * N];
+      sc += dC_part[o + (size_t)r * N];
+    }
+    store(dB + idx, sb);
+    store(dC + idx, sc);
+  }
+  if (blockIdx.x == 0) {
+    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+      double a = 0.0, d = 0.0;
+      for (int k = 0; k < parts; ++k) {
+        a += dA_part[(size_t)k * H + h];
+        d += dD_part[(size_t)k * H + h];
+      }
+      dA_log[h] = (float)(-(double)expf(A_log[h]) * a);
+      dD[h] = (float)d;
+    }
+  }
+}
+
+size_t bwd_f32_smem(int Q) {
+  return (size_t)Q * 8 + bwd_rows_bytes(Q) + (size_t)Q * (Q + 1) * 8 + kThreads / 32 * 8;
+}
+
+size_t states_f64_smem(int P, int N, int Q) {
+  return (size_t)Q * 8 + ((size_t)Q * P + (size_t)Q * N + Q) * 4;
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+template <bool kBwd>
+int launch_states_f64(const void* x, const void* dt, const void* A_log, const void* Bm,
+                      void* states, void* decay, int Bb, int S, int H, int G, int P, int N,
+                      int Q, void* stream) {
+  if (!shapes_ok(S, H, G, P, N, Q)) return (int)cudaErrorInvalidValue;
+  const size_t smem = states_f64_smem(P, N, Q);
+  const int e = set_smem(ssd_states_f64<kBwd>, smem);
+  if (e) return e;
+  ssd_states_f64<kBwd><<<dim3((S + Q - 1) / Q, Bb, H), kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A_log), static_cast<const float*>(Bm),
+      static_cast<double*>(states), static_cast<double*>(decay), S, H, G, P, N, Q);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_finish(const void* dB_part, const void* dC_part, const void* dA_part,
+                  const void* dD_part, const void* A_log, void* dB, void* dC, void* dA_log,
+                  void* dD, int Bb, int S, int H, int G, int N, int Q, void* stream) {
+  const size_t total = (size_t)Bb * S * G * N;
+  const int blocks = (int)((total + kThreads - 1) / kThreads < 4096
+                               ? (total + kThreads - 1) / kThreads : 4096);
+  ssd_bwd_finish<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dB_part), static_cast<const float*>(dC_part),
+      static_cast<const double*>(dA_part), static_cast<const double*>(dD_part),
+      static_cast<const float*>(A_log), static_cast<T*>(dB), static_cast<T*>(dC),
+      static_cast<float*>(dA_log), static_cast<float*>(dD), Bb * S, H, G, N,
+      Bb * ((S + Q - 1) / Q));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -910,16 +1799,7 @@ int ssd_bf16_states(const void* x, const void* dt, const void* A_log, const void
                     int Q, void* stream) {
   if (!shapes_ok(S, H, G, P, N, Q)) return (int)cudaErrorInvalidValue;
   const int HT = heads_per_tile(H, G, 4);
-  const size_t smem = states_smem(P, N, Q, HT);
-  cudaError_t e = cudaFuncSetAttribute(ssd_states_mma,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + Q - 1) / Q, Bb, H / HT);
-  ssd_states_mma<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A_log), static_cast<const bf16*>(Bm),
-      static_cast<float*>(states), static_cast<float*>(decay), S, H, G, P, N, Q, HT);
-  return (int)cudaGetLastError();
+  return launch_states<false>(x, dt, A_log, Bm, states, decay, Bb, S, H, G, P, N, Q, stream);
 }
 
 // 2. the state pass (init may be NULL: a zero state)
@@ -951,6 +1831,132 @@ int ssd_bf16_output(const void* x, const void* dt, const void* A_log, const void
       static_cast<const bf16*>(Cm), static_cast<const float*>(Dp),
       static_cast<const float*>(states), static_cast<bf16*>(y), S, H, G, P, N, Q, HT);
   return (int)cudaGetLastError();
+}
+
+// The backward, as launches on one stream in this order (bwd_launches in
+// ssd_scan.py). bf16: ssd_bf16_states, ssd_bf16_pass (the forward's chunk
+// states), ssd_bf16_dstates, ssd_bwd_pass, ssd_bwd_bf16,
+// ssd_bwd_finish_bf16. f32: ssd_f32_states, ssd_f64_walk (forward),
+// ssd_f32_dstates, ssd_f64_walk (reverse), ssd_bwd_f32, ssd_bwd_finish_f32.
+// Scratch: states and dstates (B, nc, H, P, N) and decay (B, nc, H), f32 in
+// bf16 and f64 in f32; dA_part, dD_part (B, nc, H) f64; dB_part, dC_part
+// (B, S, H, N) f32. Shapes as ssd_scan_f32.
+// dstates: Σ_i exp(cum_i)·dy_i ⊗ C_i per chunk (dy, C bf16)
+int ssd_bf16_dstates(const void* dy, const void* dt, const void* A_log, const void* Cm,
+                     void* dstates, int Bb, int S, int H, int G, int P, int N, int Q,
+                     void* stream) {
+  return launch_states<true>(dy, dt, A_log, Cm, dstates, nullptr, Bb, S, H, G, P, N, Q,
+                             stream);
+}
+
+// f32 x, B: chunk states and decays in f64
+int ssd_f32_states(const void* x, const void* dt, const void* A_log, const void* Bm,
+                   void* states, void* decay, int Bb, int S, int H, int G, int P, int N,
+                   int Q, void* stream) {
+  return launch_states_f64<false>(x, dt, A_log, Bm, states, decay, Bb, S, H, G, P, N, Q,
+                                  stream);
+}
+
+// f32 dy, C: dstates in f64
+int ssd_f32_dstates(const void* dy, const void* dt, const void* A_log, const void* Cm,
+                    void* dstates, int Bb, int S, int H, int G, int P, int N, int Q,
+                    void* stream) {
+  return launch_states_f64<true>(dy, dt, A_log, Cm, dstates, nullptr, Bb, S, H, G, P, N, Q,
+                                 stream);
+}
+
+// the reverse pass over chunks (dfinal and dinit may be NULL)
+int ssd_bwd_pass(void* dstates, const void* decay, const void* dfinal, void* dinit, int Bb,
+                 int S, int H, int P, int N, int Q, void* stream) {
+  const int PN = P * N;
+  const dim3 grid(((size_t)H * PN / 4 + kThreads - 1) / kThreads, Bb);
+  ssd_dstate_pass<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(dstates), static_cast<const float*>(decay),
+      static_cast<const float*>(dfinal), static_cast<float*>(dinit), (S + Q - 1) / Q, H, PN);
+  return (int)cudaGetLastError();
+}
+
+// the f32 path's walks over chunks in f64: forward (reverse = 0) makes the
+// chunk states S_in[c] from ``in`` = init (may be NULL); reverse makes dS[c]
+// from ``in`` = dfinal (may be NULL) and writes d init to ``out`` (may be
+// NULL). states (B, nc, H, P, N) and decay (B, nc, H) f64.
+int ssd_f64_walk(void* states, const void* decay, const void* in, void* out, int Bb, int S,
+                 int H, int P, int N, int Q, int reverse, void* stream) {
+  const int PN = P * N;
+  const dim3 grid(((size_t)H * PN + kThreads - 1) / kThreads, Bb);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (reverse)
+    ssd_walk_f64<true><<<grid, kThreads, 0, st>>>(
+        static_cast<double*>(states), static_cast<const double*>(decay),
+        static_cast<const float*>(in), static_cast<float*>(out), (S + Q - 1) / Q, H, PN);
+  else
+    ssd_walk_f64<false><<<grid, kThreads, 0, st>>>(
+        static_cast<double*>(states), static_cast<const double*>(decay),
+        static_cast<const float*>(in), static_cast<float*>(out), (S + Q - 1) / Q, H, PN);
+  return (int)cudaGetLastError();
+}
+
+// the chunk kernel: dx, ddt, per-head dB / dC and per-chunk dA / dD partials
+// (x, B, C, dy, dx bf16, 16-byte aligned)
+int ssd_bwd_bf16(const void* x, const void* dt, const void* A_log, const void* Bm,
+                 const void* Cm, const void* Dp, const void* dy, const void* states,
+                 const void* dstates, void* dx, void* ddt, void* dB_part, void* dC_part,
+                 void* dA_part, void* dD_part, int Bb, int S, int H, int G, int P, int N,
+                 int Q, void* stream) {
+  if (!shapes_ok(S, H, G, P, N, Q)) return (int)cudaErrorInvalidValue;
+  const size_t smem = BwdSmem(P, N, Q).bytes;
+  const int e = set_smem(ssd_bwd_mma, smem);
+  if (e) return e;
+  ssd_bwd_mma<<<dim3((S + Q - 1) / Q, Bb, H), kThreads, smem,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A_log), static_cast<const bf16*>(Bm),
+      static_cast<const bf16*>(Cm), static_cast<const float*>(Dp),
+      static_cast<const bf16*>(dy), static_cast<const float*>(states),
+      static_cast<const float*>(dstates), static_cast<bf16*>(dx), static_cast<float*>(ddt),
+      static_cast<float*>(dB_part), static_cast<float*>(dC_part),
+      static_cast<double*>(dA_part), static_cast<double*>(dD_part), S, H, G, P, N, Q);
+  return (int)cudaGetLastError();
+}
+
+// the same in f32 on the CUDA cores
+int ssd_bwd_f32(const void* x, const void* dt, const void* A_log, const void* Bm,
+                const void* Cm, const void* Dp, const void* dy, const void* states,
+                const void* dstates, void* dx, void* ddt, void* dB_part, void* dC_part,
+                void* dA_part, void* dD_part, int Bb, int S, int H, int G, int P, int N,
+                int Q, void* stream) {
+  if (!shapes_ok(S, H, G, P, N, Q)) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_f32_smem(Q);
+  const int e = set_smem(ssd_bwd_cuda_cores, smem);
+  if (e) return e;
+  ssd_bwd_cuda_cores<<<dim3((S + Q - 1) / Q, Bb, H), kThreads, smem,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A_log), static_cast<const float*>(Bm),
+      static_cast<const float*>(Cm), static_cast<const float*>(Dp),
+      static_cast<const float*>(dy), static_cast<const double*>(states),
+      static_cast<const double*>(dstates), static_cast<float*>(dx), static_cast<float*>(ddt),
+      static_cast<float*>(dB_part), static_cast<float*>(dC_part),
+      static_cast<double*>(dA_part), static_cast<double*>(dD_part), S, H, G, P, N, Q);
+  return (int)cudaGetLastError();
+}
+
+// the fixed-order sums: dB, dC (bf16) over each group's heads; dA_log, dD
+int ssd_bwd_finish_bf16(const void* dB_part, const void* dC_part, const void* dA_part,
+                        const void* dD_part, const void* A_log, void* dB, void* dC,
+                        void* dA_log, void* dD, int Bb, int S, int H, int G, int N, int Q,
+                        void* stream) {
+  return launch_finish<bf16>(dB_part, dC_part, dA_part, dD_part, A_log, dB, dC, dA_log, dD,
+                             Bb, S, H, G, N, Q, stream);
+}
+
+// the same with f32 dB, dC
+int ssd_bwd_finish_f32(const void* dB_part, const void* dC_part, const void* dA_part,
+                       const void* dD_part, const void* A_log, void* dB, void* dC,
+                       void* dA_log, void* dD, int Bb, int S, int H, int G, int N, int Q,
+                       void* stream) {
+  return launch_finish<float>(dB_part, dC_part, dA_part, dD_part, A_log, dB, dC, dA_log, dD,
+                              Bb, S, H, G, N, Q, stream);
 }
 
 }  // extern "C"

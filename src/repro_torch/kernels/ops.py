@@ -6,8 +6,8 @@ there is no fallback between the two, and any other device raises. Each
 CUDA launch adds one to its kernel's count in :data:`LAUNCHES`, so a run
 can show that its main path went through the kernels (``chip_smoke.py``
 zeroes the counts, drives the server and reads them). No gradient is
-dropped: ``attention`` differentiates through its kernels, and the kernels
-without a backward (decode attention, the SSD scan) refuse CUDA inputs
+dropped: ``attention`` and ``ssd`` differentiate through their kernels,
+and the kernel without a backward (decode attention) refuses CUDA inputs
 that require grad (:func:`refuse_grad`).
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ from repro_torch.kernels import mpk_guard as _mg
 from repro_torch.kernels import ssd_scan as _ss
 KERNELS = ("guard_copy", "mac_batch", "mac_init_state", "mac_update",
            "mac_finalize", "decode_attention", "flash_attention",
-           "flash_attention_bwd", "ssd_scan")
+           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 
 
 class LaunchCounts:
@@ -197,12 +197,52 @@ class FlashAttention(torch.autograd.Function):
 def ssd(x, dt, A_log, B, C, D, init_state=None, *, chunk: int = 128):
     """The Mamba2 SSD scan over a whole sequence → (y, final state f32).
     A sequence that is not a chunk multiple ends in identity steps (dt = 0):
-    the plain version pads them, the kernel masks them. The kernel has no
-    backward: on a CUDA tensor that requires grad it raises (the plain
-    version differentiates on the CPU)."""
+    the plain version pads them, the kernel masks them. Under grad mode
+    with an input that requires grad it runs as :class:`SSDScan`, whose
+    backward is a kernel too."""
+    if needs_grad(x, dt, A_log, B, C, D, init_state):
+        return SSDScan.apply(x, dt, A_log, B, C, D, init_state, chunk)
     if not _on_cuda(x):
         return _ss.ssd_scan_plain(x, dt, A_log, B, C, D, init_state, chunk=chunk)
-    refuse_grad("ssd_scan", x, dt, A_log, B, C, D, init_state)
     out = _ss.ssd_scan_cuda(x, dt, A_log, B, C, D, init_state, chunk=chunk)
     LAUNCHES.bump("ssd_scan")
     return out
+
+
+class SSDScan(torch.autograd.Function):
+    """The differentiable scan, the port of JAX's autodiff through
+    ``ssd_jnp.ssd_chunked``: ``SSDScan.apply(x, dt, A_log, B, C, D,
+    init_state, chunk)`` → (y, final state). On CUDA tensors the forward
+    launches the scan's kernels and the backward the backward's; on the CPU
+    both run their plain versions. The final state's gradient may be
+    absent (training drops the state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, B, C, D, init_state, chunk):
+        ctx.set_materialize_grads(False)
+        if _on_cuda(x):
+            y, final = _ss.ssd_scan_cuda(x, dt, A_log, B, C, D, init_state,
+                                         chunk=chunk)
+            LAUNCHES.bump("ssd_scan")
+        else:
+            y, final = _ss.ssd_scan_plain(x, dt, A_log, B, C, D, init_state,
+                                          chunk=chunk)
+        ctx.save_for_backward(x, dt, A_log, B, C, D, init_state)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A_log, B, C, D, init_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dy.data_ptr() % 16:               # the bf16 kernels read 16-byte pieces
+            dy = dy.clone()
+        if dfinal is not None:
+            dfinal = dfinal.float().contiguous()
+        args = (x, dt, A_log, B, C, D, init_state, dy, dfinal)
+        if _on_cuda(x):
+            grads = _ss.ssd_scan_bwd_cuda(*args, chunk=ctx.chunk)
+            LAUNCHES.bump("ssd_scan_bwd")
+        else:
+            grads = _ss.ssd_scan_bwd_plain(*args, chunk=ctx.chunk)
+        return (*grads, None)

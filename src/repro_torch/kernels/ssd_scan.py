@@ -23,9 +23,12 @@ cores. A ragged last chunk is masked in the kernels.
   reaches −1000s inside one chunk, where an f32 prefix sum keeps only
   ~1e-4 of absolute precision, and every decay factor inherits that as a
   relative error. The kernel does the same.
+:func:`ssd_scan_bwd_cuda` is the backward (the port of JAX's autodiff
+through ``ssd_chunked``), six launches (:func:`bwd_launches`), and
+:func:`ssd_scan_bwd_plain` its plain version by the same formulas.
 :func:`ssd_decode_step` is the one-token recurrence, plain PyTorch as in the
 reference. ``kernels.ops`` picks the scan by the tensor's device and counts
-the launches.
+the launches; ``ops.SSDScan`` differentiates through it.
 """
 from __future__ import annotations
 
@@ -47,6 +50,15 @@ _SIGNATURES = {
     "ssd_bf16_states": (_P,) * 6 + (_I,) * 7 + (_P,),
     "ssd_bf16_pass": (_P,) * 4 + (_I,) * 6 + (_P,),
     "ssd_bf16_output": (_P,) * 8 + (_I,) * 7 + (_P,),
+    "ssd_bf16_dstates": (_P,) * 5 + (_I,) * 7 + (_P,),
+    "ssd_f32_states": (_P,) * 6 + (_I,) * 7 + (_P,),
+    "ssd_f32_dstates": (_P,) * 5 + (_I,) * 7 + (_P,),
+    "ssd_bwd_pass": (_P,) * 4 + (_I,) * 6 + (_P,),
+    "ssd_f64_walk": (_P,) * 4 + (_I,) * 7 + (_P,),
+    "ssd_bwd_bf16": (_P,) * 15 + (_I,) * 7 + (_P,),
+    "ssd_bwd_f32": (_P,) * 15 + (_I,) * 7 + (_P,),
+    "ssd_bwd_finish_bf16": (_P,) * 9 + (_I,) * 6 + (_P,),
+    "ssd_bwd_finish_f32": (_P,) * 9 + (_I,) * 6 + (_P,),
 }
 
 
@@ -108,6 +120,116 @@ def ssd_scan_plain(x, dt, A_log, B, C, D, init_state=None, *,
     y = (y_intra + y_inter).reshape(Bb, nc * Q, H, P)[:, :S]
     y = y + D.float()[None, None, :, None] * x.float()
     return y.to(x.dtype), state.reshape(Bb, H, P, N)
+
+
+def ssd_scan_bwd_plain(x, dt, A_log, B, C, D, init_state, dy, dfinal=None, *,
+                       chunk: int = 128):
+    """The gradients of :func:`ssd_scan_plain` by explicit formulas (not
+    autograd through it): dy the gradient of y, ``dfinal`` that of the
+    final state or None (training drops it) → (dx, ddt, dA_log, dB, dC, dD,
+    d init_state or None), each in its input's dtype.
+
+    With cum the in-chunk prefix of dt·A (f64, as the forward), S_in[c] the
+    state entering chunk c and G_ij = (C_i·B_j)·exp(cum_i − cum_j) masked to
+    i ≥ j before the exp: a reverse pass over chunks gives dS[c], the
+    gradient of the state leaving chunk c (dS[nc-1] = dfinal,
+    dS[c-1] = exp(seg_c)·dS[c] + Σ_i exp(cum_i)·dy_i ⊗ C_i; d init_state is
+    what reaches chunk 0's input). Per chunk, every product of the forward
+    gives its operands' gradients, every exponential a term of d cum, and a
+    reverse in-chunk cumsum of d cum gives d(dt·A), hence ddt and dA_log.
+    dB and dC are summed over the H/G heads of a group."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    R = H // G
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    xf = _pad_seq(x.float(), pad)
+    nc = xf.shape[1] // Q
+    xb = xf.reshape(Bb, nc, Q, G, R, P)
+    dyb = _pad_seq(dy.float(), pad).reshape(Bb, nc, Q, G, R, P)
+    dtb = _pad_seq(dt.float(), pad).reshape(Bb, nc, Q, G, R)
+    Bc = _pad_seq(B.float(), pad).reshape(Bb, nc, Q, G, N)
+    Cc = _pad_seq(C.float(), pad).reshape(Bb, nc, Q, G, N)
+    A = -torch.exp(A_log.float()).reshape(G, R)
+
+    # the forward's pieces. ddt is a sum of parts that at mamba2's decays
+    # are ~1e3 times larger than it (the direct term, x_j·dS·B_j and
+    # A·d(dt·A), A up to 64), which take the rounding of every f32
+    # intermediate to ~1e-3: its chain (C·B, dy·x, the decays, the chunk
+    # states and dS, d cum, d(dt·A)) is carried in f64, the rest in f32
+    f64 = torch.float64
+    cum = torch.cumsum((dtb * A).double(), dim=2)        # (B,nc,Q,G,R)
+    seg = cum[:, :, -1:]
+    diff = cum[:, :, :, None] - cum[:, :, None]          # [i, j]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    dec64 = torch.exp(torch.where(tri[None, None, :, :, None, None], diff,
+                                  torch.tensor(float("-inf"), dtype=f64,
+                                               device=x.device)))
+    dec = dec64.float()
+    e_cum = torch.exp(cum)                               # exp(cum_i), f64
+    e_rest = torch.exp(seg - cum)                        # exp(seg − cum_j), f64
+    w = e_rest * dtb
+    s_c = torch.einsum("bcjgrp,bcjgn->bcgrpn", w[..., None] * xb, Bc.double())
+    decay = torch.exp(seg[:, :, 0])                      # (B,nc,G,R)
+    state = (torch.zeros((Bb, G, R, P, N), dtype=f64, device=x.device)
+             if init_state is None else init_state.double().reshape(Bb, G, R, P, N))
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = decay[:, c, :, :, None, None] * state + s_c[:, c]
+    s_in = torch.stack(s_in, dim=1)                      # (B,nc,G,R,P,N)
+
+    # (a) reverse state pass: ds_out[c] is the gradient of the state
+    # leaving chunk c
+    ds_c = torch.einsum("bcigrp,bcign->bcgrpn", e_cum[..., None] * dyb, Cc.double())
+    g = (torch.zeros((Bb, G, R, P, N), dtype=f64, device=x.device) if dfinal is None
+         else dfinal.double().reshape(Bb, G, R, P, N))
+    ds_out = [None] * nc
+    for c in reversed(range(nc)):
+        ds_out[c] = g
+        g = decay[:, c, :, :, None, None] * g + ds_c[:, c]
+    ds_out = torch.stack(ds_out, dim=1)
+    d_init = None if init_state is None else g.reshape(Bb, H, P, N).float()
+    s_in32, ds_out32, w32 = s_in.float(), ds_out.float(), w.float()
+
+    # (b) per chunk. intra: y_i += Σ_j cb_ij·dec_ij·dt_j·x_j
+    cb64 = torch.einsum("bcign,bcjgn->bcijg", Cc.double(), Bc.double())[..., None]
+    dyx64 = torch.einsum("bcigrp,bcjgrp->bcijgr", dyb.double(), xb.double())
+    cb, dt_j = cb64.float(), dtb[:, :, None]
+    d_cb = dec * dt_j * dyx64.float()                    # d(C_i·B_j) per head
+    dx = torch.einsum("bcijgr,bcigrp->bcjgrp", cb * dec * dt_j, dyb)
+    dB = torch.einsum("bcijgr,bcign->bcjgn", d_cb, Cc)
+    dC = torch.einsum("bcijgr,bcjgn->bcign", d_cb, Bc)
+    t = cb64 * dec64 * dyx64
+    ddt = t.sum(2)
+    # each intra term T_ij enters d cum at i and, negated, at j; the reverse
+    # cumsum below cancels every pair on one side of a step
+    t = t * dt_j.double()
+    d_cum = t.sum(3) - t.sum(2)
+    # carry: S_out += w_j·x_j ⊗ B_j, w_j = exp(seg − cum_j)·dt_j
+    r6 = torch.einsum("bcjgn,bcgrpn->bcjgrp", Bc, ds_out32)  # dS_out·B_j
+    xr6 = torch.einsum("bcjgrp,bcjgn,bcgrpn->bcjgr", xb.double(), Bc.double(), ds_out)
+    dx = dx + w32[..., None] * r6
+    ddt = ddt + e_rest * xr6
+    v = w * xr6
+    dB = dB + torch.einsum("bcjgr,bcjgrp,bcgrpn->bcjgn", w32, xb, ds_out32)
+    # inter: y_i += exp(cum_i)·S_in·C_i
+    r8 = torch.einsum("bcigrp,bcgrpn->bcigrn", dyb, s_in32)
+    dC = dC + torch.einsum("bcigr,bcigrn->bcign", e_cum.float(), r8)
+    u = e_cum * torch.einsum("bcigrp,bcign,bcgrpn->bcigr", dyb.double(), Cc.double(),
+                             s_in)
+    d_cum = d_cum + u - v                                # V_j cancels against d seg too
+    d_seg = v.sum(2) + decay * (ds_out * s_in).sum((-1, -2))
+    d_cum[:, :, -1] += d_seg
+    d_la = torch.flip(torch.cumsum(torch.flip(d_cum, [2]), 2), [2])
+    ddt = (ddt + A.double() * d_la).float()
+    dA = (dtb.double() * d_la).sum((0, 1, 2)).reshape(H)
+    dx = dx.reshape(Bb, nc * Q, H, P)[:, :S] + D.float()[None, None, :, None] * dy.float()
+    dD = (dy.float() * x.float()).sum((0, 1, 3))
+    return (dx.to(x.dtype), ddt.reshape(Bb, nc * Q, H)[:, :S].to(dt.dtype),
+            (A.reshape(H).double() * dA).to(A_log.dtype),
+            dB.reshape(Bb, nc * Q, G, N)[:, :S].to(B.dtype),
+            dC.reshape(Bb, nc * Q, G, N)[:, :S].to(C.dtype), dD.to(D.dtype), d_init)
 
 
 def ssd_decode_step(x_t, dt_t, A_log, B_t, C_t, D, state):
@@ -206,6 +328,96 @@ def bf16_launches(x, dt, A_log, B, C, D, init_state=None, *, chunk: int = 128):
                P, N, chunk),
     ]
     return (y, final), launches
+
+
+def bwd_launches(x, dt, A_log, B, C, D, init_state, dy, dfinal=None, *,
+                 chunk: int = 128):
+    """The backward as its kernel launches: → ((dx, ddt, dA_log, dB, dC,
+    dD, d init_state or None), [(name, launch), ...]), run in order on the
+    current stream by :func:`ssd_scan_bwd_cuda`. The forward's chunk
+    states and pass are recomputed (S_in of every chunk); then the chunks'
+    Σ exp(cum_i)·dy_i ⊗ C_i, the reverse pass over chunks, the chunk
+    kernel, and the fixed-order sums over heads and chunks
+    (``csrc/ssd_scan.cu``). bf16 runs on the tensor cores, f32 on the
+    CUDA cores in f64."""
+    _validate(x, dt, A_log, B, C, D, init_state, chunk)
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous() \
+            or dy.device != x.device:
+        raise ValueError(f"ssd_scan_bwd: dy must be contiguous {tuple(x.shape)} "
+                         f"{x.dtype} on {x.device}")
+    if x.dtype == torch.bfloat16 and dy.data_ptr() % 16:
+        raise ValueError("ssd_scan_bwd: bf16 dy must start 16-byte aligned")
+    if dfinal is not None and (dfinal.shape != (Bb, H, P, N)
+                               or dfinal.dtype != torch.float32
+                               or not dfinal.is_contiguous()
+                               or dfinal.device != x.device):
+        raise ValueError(f"ssd_scan_bwd: dfinal must be contiguous ({Bb}, {H}, "
+                         f"{P}, {N}) float32")
+    nc = -(-S // chunk)
+    bf16 = x.dtype == torch.bfloat16
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # the f32 instance keeps the chunk states in f64 (csrc/ssd_scan.cu: at
+    # mamba2's decays ddt takes their f32 rounding to ~1e-3)
+    st = dict(dtype=torch.float32 if bf16 else torch.float64, device=x.device)
+    states = torch.empty((Bb, nc, H, P, N), **st)
+    dstates = torch.empty((Bb, nc, H, P, N), **st)
+    decay = torch.empty((Bb, nc, H), **st)
+    parts = [torch.empty((Bb, nc, H), dtype=torch.float64, device=x.device)
+             for _ in range(2)]                                          # dA, dD
+    heads = [torch.empty((Bb, S, H, N), **f32) for _ in range(2)]      # dB, dC
+    dx = torch.empty_like(x)
+    ddt = torch.empty((Bb, S, H), **f32)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA_log, dD = torch.empty((H,), **f32), torch.empty((H,), **f32)
+    d_init = None if init_state is None else torch.empty((Bb, H, P, N), **f32)
+    lib = _build.load("ssd_scan", _SIGNATURES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def launch(name, *args):
+        def run():
+            with torch.cuda.device(x.device):
+                _build.check(getattr(lib, name)(*map(_ptr, args), stream), name)
+        return name, run
+
+    kind = "bf16" if bf16 else "f32"
+    if bf16:
+        final = torch.empty((Bb, H, P, N), **f32)
+        walks = (launch("ssd_bf16_pass", states, decay, init_state, final, Bb, S, H, P,
+                        N, chunk),
+                 launch("ssd_bwd_pass", dstates, decay, dfinal, d_init, Bb, S, H, P, N,
+                        chunk))
+    else:
+        walks = (launch("ssd_f64_walk", states, decay, init_state, None, Bb, S, H, P,
+                        N, chunk, 0),
+                 launch("ssd_f64_walk", dstates, decay, dfinal, d_init, Bb, S, H, P, N,
+                        chunk, 1))
+    launches = [
+        launch(f"ssd_{kind}_states", x, dt, A_log, B, states, decay, Bb, S, H, G, P,
+               N, chunk),
+        walks[0],
+        launch(f"ssd_{kind}_dstates", dy, dt, A_log, C, dstates, Bb, S, H, G, P, N,
+               chunk),
+        walks[1],
+        launch(f"ssd_bwd_{kind}", x, dt, A_log, B, C, D, dy, states, dstates, dx,
+               ddt, heads[0], heads[1], parts[0], parts[1], Bb, S, H, G, P, N, chunk),
+        launch(f"ssd_bwd_finish_{kind}", heads[0], heads[1], parts[0], parts[1],
+               A_log, dB, dC, dA_log, dD, Bb, S, H, G, N, chunk),
+    ]
+    return (dx, ddt, dA_log, dB, dC, dD, d_init), launches
+
+
+def ssd_scan_bwd_cuda(x, dt, A_log, B, C, D, init_state, dy, dfinal=None, *,
+                      chunk: int = 128):
+    """Launch the backward kernels (:func:`bwd_launches`); raises for
+    inputs they do not take. → (dx, ddt, dA_log, dB, dC, dD, d init_state
+    or None), as :func:`ssd_scan_bwd_plain`."""
+    grads, launches = bwd_launches(x, dt, A_log, B, C, D, init_state, dy, dfinal,
+                                   chunk=chunk)
+    for _, run in launches:
+        run()
+    return grads
 
 
 def _cuda_cores(entry, x, dt, A_log, B, C, D, init_state, chunk: int):

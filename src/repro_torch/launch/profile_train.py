@@ -1,12 +1,14 @@
 """Where a training step's time goes, on the GPU.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_train [--trace out.json]
+  PYTHONPATH=src python -m repro_torch.launch.profile_train \
+      [--arch mamba2-1.3b] [--micro 1] [--trace out.json]
 
-One ``make_train_step`` at the shape ``chip_smoke.py`` trains:
-llama3.2-1b at full width and depth, f32 parameters and AdamW moments,
-bf16 compute, a global batch of 8 x 2048 tokens in microbatches of 2, on
-the synthetic stream (random weights from seed 0). After two warm-up
-steps it reports as JSON lines:
+One ``make_train_step`` at the shape ``chip_smoke.py`` trains: ``--arch``
+(default llama3.2-1b) at full width and depth, f32 parameters and AdamW
+moments, bf16 compute, a global batch of 8 x 2048 tokens in microbatches
+of ``--micro`` (default 2; chip_smoke trains zamba2-2.7b at 1), on the
+synthetic stream (random weights from seed 0). After two warm-up steps it
+reports as JSON lines:
 
 * ``step``   — host-clock ms per step over 3 steps, tokens/s, peak memory;
 * ``device`` — one more step under ``torch.profiler``: the device's busy
@@ -28,19 +30,21 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import OptimizerConfig, TrainConfig, get_config
+from repro_torch.configs import ARCH_IDS, OptimizerConfig, TrainConfig, get_config
 from repro_torch.data import SyntheticDataset, to_device
 from repro_torch.device import resolve
 from repro_torch.models import init_params
 from repro_torch.optim import init_opt_state
 from repro_torch.runtime.steps import make_train_step
 
-ARCH, BATCH, SEQ, MICRO, STEPS = "llama3.2-1b", 8, 2048, 2, 3
+BATCH, SEQ, STEPS = 8, 2048, 3
 
 # kernel families by name (case-insensitive), first match wins
 FAMILIES = (
     ("flash_attention_bwd", r"flash_bwd"),
     ("flash_attention", r"flash_fwd"),
+    ("ssd_scan_bwd", r"ssd_bwd|ssd_dstate_pass|ssd_states_mma<true>"),
+    ("ssd_scan", r"ssd_states_mma|ssd_state_pass|ssd_output_mma"),
     ("gemm", r"gemm|nvjet|xmma|cutlass|cublas|sm90_"),
     ("softmax_cross_entropy", r"softmax|nll_loss|cross_entropy"),
     ("reduce", r"reduce|norm"),
@@ -55,12 +59,14 @@ def _family(name: str) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b", choices=list(ARCH_IDS))
+    ap.add_argument("--micro", type=int, default=2)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
 
     dev = resolve("cuda")
-    cfg = get_config(ARCH)
-    tcfg = TrainConfig(microbatch_size=MICRO, dtype="bfloat16",
+    cfg = get_config(args.arch)
+    tcfg = TrainConfig(microbatch_size=args.micro, dtype="bfloat16",
                        optimizer=OptimizerConfig(lr=3e-4, warmup_steps=2,
                                                  total_steps=100))
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -83,7 +89,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(json.dumps({"phase": "step", "arch": cfg.name, "nvidia_smi": smi,
-                      "global_batch": BATCH, "seq_len": SEQ, "microbatch": MICRO,
+                      "global_batch": BATCH, "seq_len": SEQ, "microbatch": args.micro,
                       "steps": STEPS, "ms_per_step": step_ms,
                       "tokens_per_s": BATCH * SEQ / step_ms * 1e3,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}),

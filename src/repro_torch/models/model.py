@@ -1,9 +1,10 @@
 """Top-level model API: init / forward / loss / decode state / decode step
-for the dense and SSM families (the port of that subset of
+for the dense, SSM and hybrid families (the port of that subset of
 ``repro.models.model``).
 
 The parameter tree is the reference's: ``{"embed": {"tok" (Vp, D)[,
-"head"]}, "final_norm": {"scale"}, "blocks": <stacked blocks>}``, so
+"head"]}, "final_norm": {"scale"}, "blocks": <stacked blocks>}``, and for
+the hybrid family also ``"shared_attn"`` {ln1, attn, ln2, ffn}, so
 ``convert.params_from_numpy`` can carry the JAX package's parameters over.
 """
 from __future__ import annotations
@@ -32,9 +33,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     embed = {"tok": torch.nn.init.normal_(tok, 0.0, 0.02, generator=gen).to(dtype)}
     if not cfg.tie_embeddings:
         embed["head"] = dense_init(gen, (D, vp), D, dtype)
-    return {"embed": embed,
-            "final_norm": {"scale": torch.ones(D, dtype=dtype, device=gen.device)},
-            "blocks": tf.init_stack(cfg, gen, cfg.num_layers, dtype)}
+    params = {"embed": embed,
+              "final_norm": {"scale": torch.ones(D, dtype=dtype, device=gen.device)},
+              "blocks": tf.init_stack(cfg, gen, cfg.num_layers, dtype)}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = tf.init_shared_block(cfg, gen, dtype)
+    return params
 
 
 def forward(cfg: ModelConfig, params, batch, *, impl: Impl = Impl(),
@@ -51,7 +55,12 @@ def forward(cfg: ModelConfig, params, batch, *, impl: Impl = Impl(),
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     x = embed_tokens(params["embed"], tokens, dtype)
-    x = tf.apply_stack(cfg, params["blocks"], x, positions=positions, impl=impl)
+    if cfg.family == "hybrid":
+        x = tf.apply_hybrid_stack(cfg, params["blocks"], params["shared_attn"], x,
+                                  positions=positions, impl=impl)
+    else:
+        x = tf.apply_stack(cfg, params["blocks"], x, positions=positions,
+                           impl=impl)
     if last_only:
         x = x[:, -1:]
     x = apply_norm(cfg, params["final_norm"], x)
@@ -79,15 +88,21 @@ def loss_fn(cfg: ModelConfig, params, batch, *, impl: Impl = Impl(),
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                       dtype=torch.bfloat16, device="cuda") -> dict:
     """``{"caches": ..., "pos": 0}``: dense KV caches {"k", "v"} of
-    (L, B, S, Hkv, Dh), or for the SSM family the recurrent state
-    {"ssd" (L, B, H, P, N) f32, "conv" (L, B, cw-1, C)}."""
+    (L, B, S, Hkv, Dh); for the SSM family the recurrent state
+    {"ssd" (L, B, H, P, N) f32, "conv" (L, B, cw-1, C)}; for the hybrid
+    family {"mamba": that state, "attn": KV caches of (L / attn_every, B,
+    S, Hkv, Dh)}, one per insertion of the shared block."""
     tf.check_ported(cfg)
     dev = resolve(device)
-    if cfg.family == "ssm":
-        s = cfg.ssm
+    s = cfg.ssm
+    if cfg.family in ("ssm", "hybrid"):
         caches = kvcache.init_ssm_state(
             cfg.num_layers, batch, cfg.ssm_heads, s.head_dim, s.d_state,
             s.conv_width, cfg.d_inner + 2 * s.n_groups * s.d_state, dtype, dev)
+        if cfg.family == "hybrid":
+            caches = {"mamba": caches, "attn": kvcache.init_dense_cache(
+                cfg.num_layers // cfg.attn_every, batch, max_seq,
+                cfg.kv_heads_eff, cfg.head_dim, dtype, dev)}
     else:
         caches = kvcache.init_dense_cache(cfg.num_layers, batch, max_seq,
                                           cfg.kv_heads_eff, cfg.head_dim, dtype,
@@ -102,8 +117,13 @@ def decode_step(cfg: ModelConfig, params, state, token: torch.Tensor, *,
     ``state`` are updated in place; the returned state holds pos + 1."""
     pos = state["pos"]
     x = embed_tokens(params["embed"], token, dtype)
-    x, caches = tf.decode_stack(cfg, params["blocks"], state["caches"], x, pos,
-                                impl=impl)
+    if cfg.family == "hybrid":
+        x, caches = tf.decode_hybrid_stack(cfg, params["blocks"],
+                                           params["shared_attn"], state["caches"],
+                                           x, pos, impl=impl)
+    else:
+        x, caches = tf.decode_stack(cfg, params["blocks"], state["caches"], x,
+                                    pos, impl=impl)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_logits(cfg, params["embed"], x)
     return logits, {"caches": caches, "pos": pos + 1}

@@ -1,14 +1,16 @@
-"""Blocks and layer stacks for the dense and SSM families (the port of that
-subset of ``repro.models.transformer``).
+"""Blocks and layer stacks for the dense, SSM and hybrid families (the port
+of that subset of ``repro.models.transformer``).
 
-  dense : [attn → ffn] × L
-  ssm   : [mamba2] × L
+  dense  : [attn → ffn] × L
+  ssm    : [mamba2] × L
+  hybrid : ([mamba2] × attn_every → shared attn/ffn block) × (L / attn_every)
 
 Layer parameters are stacked on a leading L axis, as the reference's
-``init_stack`` produces them. The stacks walk the L axis with a Python loop
-(the reference's ``lax.scan``); ``remat`` has no meaning without a backward
-and is not ported. :func:`decode_stack` updates the stacked decode state in
-place.
+``init_stack`` produces them; the hybrid family's attention block is one
+block whose weights every insertion shares (autograd sums its gradient
+over the insertions). The stacks walk the L axis with a Python loop (the
+reference's ``lax.scan``); ``remat`` is not ported. The decode stacks
+update the stacked decode state in place.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, apply_norm, dense_init
+from repro_torch.tree import map_tree
 
 _IMPLS = ("kernel", "plain")
 
@@ -43,27 +46,36 @@ class Impl:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for a configuration whose family the port does not run yet."""
-    if (cfg.family not in ("dense", "ssm") or cfg.moe or cfg.enc_dec
-            or cfg.swa_window or cfg.vision_tokens):
+    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe or cfg.enc_dec
+            or cfg.swa_window or cfg.vision_tokens
+            or (cfg.family == "hybrid" and not cfg.shared_attn)):
         raise NotImplementedError(
-            f"{cfg.name}: only dense full-attention and SSM models are "
-            f"ported yet")
+            f"{cfg.name}: only dense full-attention, SSM and shared-attention "
+            f"hybrid models are ported yet")
 
 
 def init_stack(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
                dtype=torch.float32) -> dict:
     """``n_layers`` blocks stacked on a leading L axis: the tree of the
     reference's ``init_stack`` (dense: ln1, attn {wq, wk, wv, wo}, ln2,
-    ffn {up, down, gate}; ssm: ln1, mamba)."""
+    ffn {up, down, gate}; ssm and hybrid: ln1, mamba)."""
     check_ported(cfg)
-    L, D = n_layers, cfg.d_model
+    if cfg.family == "dense":
+        return _init_attn_blocks(cfg, gen, n_layers, dtype)
+    ones = torch.ones((n_layers, cfg.d_model), dtype=dtype, device=gen.device)
+    return {"ln1": {"scale": ones},
+            "mamba": ssm_mod.init_mamba_stack(cfg, gen, n_layers, dtype)}
 
-    def ones():
-        return torch.ones((L, D), dtype=dtype, device=gen.device)
 
-    if cfg.family == "ssm":
-        return {"ln1": {"scale": ones()},
-                "mamba": ssm_mod.init_mamba_stack(cfg, gen, L, dtype)}
+def init_shared_block(cfg: ModelConfig, gen: torch.Generator,
+                      dtype=torch.float32) -> dict:
+    """The hybrid family's one attention + MLP block (``shared_attn``:
+    ln1, attn, ln2, ffn, unstacked), as the reference's ``init_params``."""
+    return map_tree(lambda t: t[0].clone(), _init_attn_blocks(cfg, gen, 1, dtype))
+
+
+def _init_attn_blocks(cfg: ModelConfig, gen: torch.Generator, L: int, dtype) -> dict:
+    D = cfg.d_model
     if cfg.q_heads_eff != cfg.num_heads or cfg.kv_heads_eff != cfg.num_kv_heads:
         raise NotImplementedError("head padding is not ported yet")
     H, Hkv, Dh, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
@@ -78,6 +90,9 @@ def init_stack(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
            "down": dense_init(gen, (L, F, D), F, dtype)}
     if cfg.mlp_type == "glu":
         ffn["gate"] = dense_init(gen, (L, D, F), D, dtype)
+
+    def ones():
+        return torch.ones((L, D), dtype=dtype, device=gen.device)
     return {"ln1": {"scale": ones()}, "attn": attn, "ln2": {"scale": ones()},
             "ffn": ffn}
 
@@ -112,16 +127,23 @@ def num_layers(stacked: dict) -> int:
 # full-sequence stacks (prefill)
 # ---------------------------------------------------------------------------
 
-def apply_block(cfg: ModelConfig, p, x, *, positions, impl: Impl):
-    """Full-sequence block (causal, RoPE)."""
-    if cfg.family == "ssm":
-        return x + ssm_mod.apply_mamba(cfg, p["mamba"],
-                                       apply_norm(cfg, p["ln1"], x),
-                                       impl=impl.ssd)
+def _mamba_block(cfg: ModelConfig, p, x, *, impl: Impl):
+    return x + ssm_mod.apply_mamba(cfg, p["mamba"], apply_norm(cfg, p["ln1"], x),
+                                   impl=impl.ssd)
+
+
+def _attn_block(cfg: ModelConfig, p, x, *, positions, impl: Impl):
     h = attn_mod.apply_attn(cfg, p["attn"], apply_norm(cfg, p["ln1"], x),
                             positions=positions, impl=impl.attention)
     x = x + h
     return x + apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+
+
+def apply_block(cfg: ModelConfig, p, x, *, positions, impl: Impl):
+    """Full-sequence block (causal, RoPE)."""
+    if cfg.family == "ssm":
+        return _mamba_block(cfg, p, x, impl=impl)
+    return _attn_block(cfg, p, x, positions=positions, impl=impl)
 
 
 def apply_stack(cfg: ModelConfig, stacked, x, *, positions, impl: Impl):
@@ -131,26 +153,51 @@ def apply_stack(cfg: ModelConfig, stacked, x, *, positions, impl: Impl):
     return x
 
 
+def apply_hybrid_stack(cfg: ModelConfig, mamba_stack, shared_block, x, *,
+                       positions, impl: Impl):
+    """zamba2: segments of ``attn_every`` mamba blocks, each followed by the
+    shared attention + MLP block."""
+    every = cfg.attn_every
+    blocks = layers(mamba_stack)
+    if len(blocks) % every:
+        raise ValueError(f"{cfg.name}: {len(blocks)} layers do not split into "
+                         f"segments of {every}")
+    for i, p in enumerate(blocks):
+        x = _mamba_block(cfg, p, x, impl=impl)
+        if (i + 1) % every == 0:
+            x = _attn_block(cfg, shared_block, x, positions=positions, impl=impl)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # decode (one new token through the cached stack)
 # ---------------------------------------------------------------------------
 
-def decode_block(cfg: ModelConfig, p, x, cache, pos, *, impl: Impl,
-                 use_rope: bool = True):
-    """One block for one new token; updates ``cache`` (one layer's views of
-    the stacked decode state) in place. Returns (x, cache)."""
-    if cfg.family == "ssm":
-        h, new = ssm_mod.decode_mamba(cfg, p["mamba"],
-                                      apply_norm(cfg, p["ln1"], x), cache)
-        cache["conv"].copy_(new["conv"])
-        cache["ssd"].copy_(new["ssd"])
-        return x + h, cache
+def _decode_mamba_block(cfg: ModelConfig, p, x, cache):
+    h, new = ssm_mod.decode_mamba(cfg, p["mamba"], apply_norm(cfg, p["ln1"], x),
+                                  cache)
+    cache["conv"].copy_(new["conv"])
+    cache["ssd"].copy_(new["ssd"])
+    return x + h, cache
+
+
+def _decode_attn_block(cfg: ModelConfig, p, x, cache, pos, *, impl: Impl,
+                       use_rope: bool = True):
     h, cache = attn_mod.decode_attn(cfg, p["attn"], apply_norm(cfg, p["ln1"], x),
                                     cache, pos, use_rope=use_rope,
                                     impl=impl.decode_attention)
     x = x + h
     h = apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
     return x + h, cache
+
+
+def decode_block(cfg: ModelConfig, p, x, cache, pos, *, impl: Impl,
+                 use_rope: bool = True):
+    """One block for one new token; updates ``cache`` (one layer's views of
+    the stacked decode state) in place. Returns (x, cache)."""
+    if cfg.family == "ssm":
+        return _decode_mamba_block(cfg, p, x, cache)
+    return _decode_attn_block(cfg, p, x, cache, pos, impl=impl, use_rope=use_rope)
 
 
 def decode_stack(cfg: ModelConfig, stacked, caches, x, pos, *, impl: Impl,
@@ -162,4 +209,20 @@ def decode_stack(cfg: ModelConfig, stacked, caches, x, pos, *, impl: Impl,
         x, _ = decode_block(cfg, layer(stacked, i), x,
                             {k: c[i] for k, c in caches.items()}, pos,
                             impl=impl, use_rope=use_rope)
+    return x, caches
+
+
+def decode_hybrid_stack(cfg: ModelConfig, mamba_stack, shared_block, caches, x,
+                        pos, *, impl: Impl):
+    """One new token through the hybrid stack. ``caches`` is
+    {"mamba": {"ssd", "conv"} stacked on L, "attn": {"k", "v"} stacked on
+    L / attn_every, one KV cache per insertion of the shared block};
+    updated in place."""
+    every = cfg.attn_every
+    for i in range(num_layers(mamba_stack)):
+        x, _ = _decode_mamba_block(cfg, layer(mamba_stack, i), x,
+                                   {k: c[i] for k, c in caches["mamba"].items()})
+        if (i + 1) % every == 0:
+            seg = {k: c[i // every] for k, c in caches["attn"].items()}
+            x, _ = _decode_attn_block(cfg, shared_block, x, seg, pos, impl=impl)
     return x, caches

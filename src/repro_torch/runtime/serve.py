@@ -4,7 +4,9 @@
 Requests (prompts) occupy slots of a size-B decode batch; every engine tick
 runs ONE decode_step for all slots with per-slot positions (the per-slot KV
 insert is ``kvcache.dense_cache_insert_rows``; the SSM family carries a
-recurrent state per slot instead). New requests join as slots
+recurrent state per slot instead, and the hybrid family both: a recurrent
+state per mamba layer and a KV cache per insertion of its shared attention
+block). New requests join as slots
 free up. Prompt tokens are fed incrementally through the same decode path
 (teacher-forced), then generation continues from the model's samples until
 EOS/max_new.
@@ -34,6 +36,7 @@ from repro_torch.core.transports import DeadlineExpired, ServiceCrashed
 from repro_torch.device import resolve
 from repro_torch.models import decode_step, init_decode_state
 from repro_torch.models.transformer import Impl
+from repro_torch.tree import leaves
 
 
 @dataclass
@@ -97,9 +100,10 @@ class ServingEngine:
                 req = self.queue.pop(i)
                 req.slot = b
                 self.slots[b] = req
-                # reset slot: zero its row of every decode-state leaf (KV
-                # cache or SSM state) + its position
-                for leaf in self.state["caches"].values():
+                # reset slot: zero its row of every leaf of the (nested)
+                # decode state, KV caches and SSM states alike, and its
+                # position
+                for leaf in leaves(self.state["caches"]):
                     leaf[:, b] = 0
                 self.state["pos"][b] = 0
                 self.current_token[b, 0] = req.prompt[0]
