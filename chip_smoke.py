@@ -17,14 +17,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              cache, Dh 80 with g = 5 and 6; flash attention at Dh 64, 80
              and 128 and its log-sum-exp; the flash backward against its
              plain version at 1e-4 in f32 and 2e-2 in bf16, relative and
-             absolute, Dh 64, 80, 128, g 1, 4, 5, each call twice; the SSD
-             scan at 1e-4 in f32 and 2e-2 in bf16, relative and absolute,
-             with mamba2-1.3b's decays; the SSD backward the same way at
-             mamba2's and zamba2's shapes, ragged lengths, an init state
-             and a final-state gradient, G > 1, each call twice). Then the
-             repairs: attention and the SSD under grad run their forward
-             and backward kernels, a backward through the decode kernel
-             raises, and 70,000 one-row frames go through
+             absolute, Dh 64, 80, 128, g 1, 4, 5, lengths off its tiles,
+             each call twice; the SSD scan at 1e-4 in f32 and 2e-2 in bf16,
+             relative and absolute, with mamba2-1.3b's decays; the SSD
+             backward the same way at mamba2's and zamba2's shapes, ragged
+             lengths, an init state and a final-state gradient, G > 1,
+             tiles of heads that leave a group's last tile short, each
+             call twice).
+             Then the repairs: attention and the SSD under grad run their
+             forward and backward kernels, a backward through the decode
+             kernel raises, and 70,000 one-row frames go through
              ``framing.mac_batch`` bit for bit.
 3. prefill — ``runtime.steps.make_prefill_step`` at full width and depth
              (bf16, random weights from a seeded generator), 4 prompts of
@@ -63,15 +65,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 Then a ``kernels`` JSON line (times from CUDA events, bounds from this
 run's inputs, launches summed over the prefill, serve and train phases;
 the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
-replaced timed in this run; they and the two backwards add
-``kernels_per_call`` from ``torch.profiler`` (1, 3, 3 and 6), the SSD's
-and its backward's ``pass_ms``, flash attention's ``at_dh80``
+replaced timed in this run, and the two backwards the design each replaced
+(flash: ``mma.sync``; SSD: the per-head chunk kernel, also
+``earlier_pass_ms``); the four add ``kernels_per_call``, the kernel
+nodes of a CUDA graph that captures the call (1, 3, 3 and 6), ``pass_ms`` (the flash backward's
+from the profiler's device times), ``at_dh80`` for both flash rows
 (zamba2-2.7b's attention) and ``tensor_core_instr``, the HGMMA/HMMA
-instructions in the SASS of their bf16 kernels; the decode-attention, guard_copy, mac_batch and mac_update
+instructions in the SASS of their bf16 kernels (the flash backward's must
+be HGMMA); the SSD backward's row adds its ``heads_per_tile``; the decode-attention, guard_copy, mac_batch and mac_update
 rows add ``earlier_ms`` and ``earlier_graph_ms``, the two-launch designs
 they replaced, ``graph_ms``, ms per call under CUDA-graph replay (outputs
 checked against the eager calls bit for bit), and ``kernels_per_call``
-from ``torch.profiler`` (must be 1); decode attention adds
+counted the same way (must be 1); decode attention adds
 ``at_full_cache``, 16 layer caches of (8, 1024, 8, 64) called in turn, and
 ``at_long_cache``, one (8, 16384, 8, 64) cache, both cold in L2;
 guard_copy adds ``at_64MiB``; mac_update ``at_65536_rows`` and mac_batch
@@ -156,37 +161,70 @@ def graph_ms(calls, reps=10):
     return start.elapsed_time(end) / (reps * len(calls))
 
 
-def kernels_per_call(fn, n=10, windows=3):
-    """Device kernels per call of ``fn``, counted by ``torch.profiler`` over
-    ``n`` calls (copies and memsets aside). The profiler now and then loses
-    one kernel record of a window (19 of 20 and 29 of 30 seen), and can
-    never count one that did not run: so each window opens with a warm-up
-    step that the profiler discards, and each kernel's count is the largest
-    of ``windows`` windows. It has also once recorded no kernel at all in
-    three windows of a call that ran (``fn``'s outputs are checked
-    elsewhere): while no window has recorded one, more are taken, up to
-    10. The flash and SSD rows round the result in their checks; the
-    line reports it as measured."""
+def kernels_per_call(fn, n=3):
+    """Device kernels per call of ``fn``: after an eager warm-up on the
+    capture stream (which makes the kernels' workspaces), ``n`` calls are
+    captured in one CUDA graph and its kernel nodes are counted through the
+    driver API (copies and memsets are nodes of other types). The count is
+    read from the graph itself, so it holds every kernel the calls launch;
+    ``torch.profiler``, which counted them before, lost records now and
+    then (a three-kernel call once read 2.3)."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(n):
+            fn()
+    driver = ctypes.CDLL("libcuda.so.1")
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(driver.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(driver.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
+          "cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        check(driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kernels += kind.value == 0              # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels / n
+
+
+def kernel_ms(fn, n=10):
+    """Device ms per call of each kernel that ``fn`` launches, by name
+    (``torch.profiler``, ``n`` calls after one the profiler discards)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    best, taken = {}, 0
-    while taken < windows or (not best and taken < 10):
-        taken += 1
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(n):
             fn()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-        for e in prof.key_averages():
-            if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.key.startswith(("Memcpy", "Memset", "ProfilerStep"))):
-                best[e.key] = max(best.get(e.key, 0), e.count)
-    return sum(best.values()) / n
+        torch.cuda.synchronize()
+        prof.step()
+    return {e.key: e.self_device_time_total / 1e3 / n for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset", "ProfilerStep"))}
+
+
+def short_names(times, names):
+    """``times`` keyed by the first of ``names`` that each kernel's name
+    contains (C++ kernel names carry templates and namespaces)."""
+    out = {}
+    for key, ms in times.items():
+        for name in names:
+            if name in key:
+                out[name] = out.get(name, 0.0) + ms
+                break
+    return out
 
 
 def bound(nbytes, ops, kind):
@@ -504,8 +542,10 @@ def check_flash_bwd(gen):
     no atomics), |got - want| <= tol·(1 + |want|) for dq, dk and dv with tol
     1e-4 in f32 and 2e-2 in bf16: Dh 64, 80 and 128, g 1, 4 and 5, causal
     with and without a window, non-causal, ragged Sq != Skv, q_pos < 0 rows
-    (dq 0) and kv_pos < 0 keys (dk = dv = 0), and the training shape
-    (2, 2048, 32/8, 64). → the worst bf16 error."""
+    (dq 0) and kv_pos < 0 keys (dk = dv = 0), the training shape
+    (2, 2048, 32/8, 64), and Sq and Skv off the bf16 design's 128- and
+    64-row tiles (one query row, 65 over 127, 383, 191 over 64). A
+    misaligned dO is refused. → the worst bf16 error."""
     from repro_torch.kernels import flash_attention as fa
     cases = [  # B, Sq, Skv, H, Hkv, Dh, causal, window, tail, padded q rows
         (2, 2048, 2048, 32, 8, 64, True, None, 0, 0),
@@ -517,6 +557,12 @@ def check_flash_bwd(gen):
         (1, 257, 300, 8, 2, 128, True, None, 3, 2),
         (2, 128, 200, 4, 4, 128, False, None, 7, 0),
         (1, 150, 150, 5, 1, 128, True, 50, 0, 4),
+        # off the wgmma design's tiles (128 resident rows, 64 streamed)
+        (2, 200, 333, 8, 8, 64, True, None, 5, 3),
+        (1, 65, 127, 12, 4, 64, False, 50, 0, 0),
+        (1, 383, 383, 10, 2, 80, True, 100, 3, 1),
+        (1, 1, 129, 4, 1, 128, True, None, 0, 0),
+        (2, 191, 64, 4, 4, 128, False, None, 1, 2),
     ]
     worst = 0.0
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
@@ -551,6 +597,10 @@ def check_flash_bwd(gen):
                       and got[2][:, -tail:].abs().max().item() == 0.0,
                       f"flash_attention_bwd {case}: a kv_pos < 0 key has a gradient")
             del q, k, v, out, lse, dout, got, again, want
+    q, k, v, qp, kp = flash_inputs(gen, 1, 64, 64, 4, 2, 64, torch.bfloat16, 0)
+    out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True)
+    refuses(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, misaligned(out), qp, kp),
+            "flash_attention_bwd")
     return worst
 
 
@@ -689,8 +739,10 @@ def check_ssd_bwd(gen):
     over heads and chunks run in a fixed order): mamba2-1.3b's training
     microbatch (2, 2048, 64, 64, N 128) and decays, zamba2-2.7b's heads
     (80 of 64, N 64), lengths that are not chunk multiples, one step, an
-    init_state and a final-state gradient, G > 1, chunks of 32 and 64.
-    → the worst bf16 absolute error."""
+    init_state and a final-state gradient, G > 1, chunks of 32 and 64, and
+    shapes whose planned tiles of heads leave a group's last tile short
+    (24 heads in tiles of 5; 3 in tiles of 2) or take one head a tile (at
+    least two short ones, checked). → the worst bf16 absolute error."""
     from repro_torch.kernels import ssd_scan as ss
     cases = [  # B, S, H, P, G, N, Q, init, d final
         (2, 2048, 64, 64, 1, 128, 128, False, False),
@@ -701,8 +753,20 @@ def check_ssd_bwd(gen):
         (2, 1, 16, 64, 2, 128, 128, True, True),
         (2, 300, 8, 32, 1, 32, 128, False, True),
         (1, 200, 16, 64, 4, 32, 32, True, True),
+        # the bf16 chunk kernel's tiles of heads, as bwd_heads_per_tile plans
+        # them on 132 SMs: 24 heads a group in tiles of 5, 5, 5, 5 and 4,
+        # with decays exp(-dt·1) .. exp(-dt·24) summed in one Σ M; 12 heads
+        # in 4 groups of 3, tiles of 2 and 1; one head a tile
+        (2, 400, 24, 64, 1, 128, 32, False, True),
+        (1, 2048, 12, 64, 4, 64, 128, True, True),
+        (1, 190, 12, 32, 1, 32, 64, True, False),
     ]
     names = ("dx", "ddt", "dA_log", "dB", "dC", "dD", "d_init")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ragged = [c for c in cases
+              if (c[2] // c[4]) % ss.bwd_heads_per_tile(c[0], c[1], c[2], c[4], c[6], sms)]
+    check(len(ragged) >= 2, f"ssd_scan_bwd: the cases plan {len(ragged)} groups whose "
+          f"last tile of heads is short on {sms} SMs, want 2")
     worst = 0.0
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         for B, S, H, P, G, N, Q, init, dfin in cases:
@@ -1393,7 +1457,7 @@ def flash_row(gen, launches, err):
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, is_causal=True, enable_gqa=True), 20)
     kpc = kernels_per_call(lambda: fa.flash_attention_cuda(q, k, v, qp, kp))
-    check(round(kpc) == 1, f"flash_attention: {kpc} kernels per call")
+    check(kpc == 1, f"flash_attention: {kpc} kernels per call")
     row = _row("flash_attention", "flash_attention.cu",
                 "src/repro/kernels/flash_attention.py:76", launches, err,
                 f"q ({B}, {S}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
@@ -1433,17 +1497,16 @@ def flash_at_dh80(gen, B=4, S=2048, H=32, Dh=80):
                     qs, ks, vs, is_causal=True), 20))
 
 
-def flash_bwd_row(gen, launches, err):
-    """The attention backward at llama3.2-1b's training shape: a microbatch
-    of 2 x 2048 tokens, 32 query heads over 8 kv heads of 64, causal, bf16.
-    The operations are the five products, 10·Dh·H per valid (q, kv) pair of
-    this run's positions; the bytes read q, k, v, o, dO, lse and the
-    positions once and write dq, dk, dv once. ``library_ms`` is the
-    backward of PyTorch's scaled_dot_product_attention (causal, GQA) on
-    the same inputs, its forward outside the timing."""
+FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma")
+
+
+def flash_bwd_case(gen, B, S, H, Hkv, Dh):
+    """Causal bf16 inputs of the backward at (B, S, H/Hkv, Dh), the forward
+    kernel's output and log-sum-exp, a random dO; the valid pairs, the
+    bound's bytes and SDPA's backward on the same q, k, v and dO (its
+    forward outside the timing)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    B, S, H, Hkv, Dh = 2, 2048, 32, 8, 64
     q, k, v, qp, kp = flash_inputs(gen, B, S, S, H, Hkv, Dh, torch.bfloat16, tail=0)
     out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True)
     dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1452,22 +1515,69 @@ def flash_bwd_row(gen, launches, err):
     nbytes = (2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
               + 4 * (qp.numel() + kp.numel()))
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-    ref = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    ref = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=H != Hkv)
     douts = dout.transpose(1, 2)
-    lib = cuda_ms(lambda: torch.autograd.grad(ref, (qs, ks, vs), douts,
-                                              retain_graph=True), 20)
+    lib = cuda_ms(lambda: torch.autograd.grad(ref, (qs, ks, vs), douts, retain_graph=True),
+                  20)
+    return args, pairs, nbytes, lib
+
+
+def flash_bwd_row(gen, launches, err):
+    """The attention backward at llama3.2-1b's training shape: a microbatch
+    of 2 x 2048 tokens, 32 query heads over 8 kv heads of 64, causal, bf16.
+    The operations are the five products, 10·Dh·H per valid (q, kv) pair of
+    this run's positions; the bytes read q, k, v, o, dO, lse and the
+    positions once and write dq, dk, dv once. ``library_ms`` is the
+    backward of PyTorch's scaled_dot_product_attention (causal, GQA) on
+    the same inputs, its forward outside the timing. ``earlier_ms`` is the
+    mma.sync design timed here on the same inputs, ``pass_ms`` each of the
+    three launches' device time (torch.profiler), ``at_dh80`` the same at
+    zamba2-2.7b's attention (1, 2048, 32, 80), MHA."""
+    from repro_torch.kernels import flash_attention as fa
+    B, S, H, Hkv, Dh = 2, 2048, 32, 8, 64
+    args, pairs, nbytes, lib = flash_bwd_case(gen, B, S, H, Hkv, Dh)
     kpc = kernels_per_call(lambda: fa.flash_attention_bwd_cuda(*args))
-    check(round(kpc) == 3, f"flash_attention_bwd: {kpc} kernels per call, want 3 "
+    check(kpc == 3, f"flash_attention_bwd: {kpc} kernels per call, want 3 "
           f"(delta, dK/dV, dQ)")
-    return _row("flash_attention_bwd", "flash_attention_bwd.cu",
-                "src/repro/kernels/flash_jnp.py:113 (_flash_bwd, no pallas_call)",
-                launches, err,
-                f"q ({B}, {S}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
-                f"causal, dO, lse", cuda_ms(lambda: fa.flash_attention_bwd_cuda(*args), 10),
-                cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), 2),
-                nbytes, 10 * Dh * H * pairs, "bf16", lib, valid_pairs=pairs,
-                kernels_per_call=kpc,
-                tensor_core_instr=tensor_core_instr("flash_attention_bwd", ("_mma",)))
+    row = _row("flash_attention_bwd", "flash_attention_bwd.cu",
+               "src/repro/kernels/flash_jnp.py:113 (_flash_bwd, no pallas_call)",
+               launches, err,
+               f"q ({B}, {S}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
+               f"causal, dO, lse", cuda_ms(lambda: fa.flash_attention_bwd_cuda(*args), 20),
+               cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), 2),
+               nbytes, 10 * Dh * H * pairs, "bf16", lib, valid_pairs=pairs,
+               earlier_ms=cuda_ms(lambda: fa._flash_attention_bwd_mma_sync(*args), 10),
+               pass_ms=short_names(kernel_ms(lambda: fa.flash_attention_bwd_cuda(*args)),
+                                   FLASH_BWD_KERNELS),
+               kernels_per_call=kpc,
+               tensor_core_instr=tensor_core_instr("flash_attention_bwd",
+                                                   FLASH_BWD_KERNELS[1:]))
+    check(row["tensor_core_instr"] > 0, "flash_attention_bwd: no HGMMA in its kernels")
+    del args
+    row["at_dh80"] = flash_bwd_at_dh80(gen)
+    return row
+
+
+def flash_bwd_at_dh80(gen, B=1, S=2048, H=32, Dh=80):
+    """The backward at Dh 80, zamba2-2.7b's attention (32 heads, MHA, its
+    training microbatch of 1 x 2048), causal, bf16: ms, earlier ms, pass ms,
+    bound, SDPA's backward and the error against the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    args, pairs, nbytes, lib = flash_bwd_case(gen, B, S, H, H, Dh)
+    got = fa.flash_attention_bwd_cuda(*args)
+    want = fa.flash_attention_bwd_plain(*args)
+    e = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    excess = max(((g.float() - w.float()).abs() - 2e-2 * (1 + w.float().abs())).max().item()
+                 for g, w in zip(got, want))
+    check(excess <= 0, f"flash_attention_bwd at Dh 80: over tolerance by {excess}")
+    b_ms, by = bound(nbytes, 10 * Dh * H * pairs, "bf16")
+    return dict(shape=f"q/k/v ({B}, {S}, {H}, {Dh}) bf16, causal, dO, lse",
+                ms=cuda_ms(lambda: fa.flash_attention_bwd_cuda(*args), 20),
+                earlier_ms=cuda_ms(lambda: fa._flash_attention_bwd_mma_sync(*args), 10),
+                pass_ms=short_names(kernel_ms(lambda: fa.flash_attention_bwd_cuda(*args)),
+                                    FLASH_BWD_KERNELS),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), 2),
+                bound_ms=b_ms, bound_by=by, max_abs_err=e, library_ms=lib)
 
 
 def ssd_row(gen, launches, err):
@@ -1486,7 +1596,7 @@ def ssd_row(gen, launches, err):
         + 2 * H * 4 + B * H * P * N * 4
     _, passes = ss.bf16_launches(x, dt, A_log, Bm, Cm, D, chunk=Q)
     kpc = kernels_per_call(lambda: ss.ssd_scan_cuda(x, dt, A_log, Bm, Cm, D, chunk=Q))
-    check(round(kpc) == len(passes),
+    check(kpc == len(passes),
           f"ssd_scan: {kpc} kernels per call, want {len(passes)}")
     return _row("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:70",
                 launches, err,
@@ -1514,7 +1624,9 @@ def ssd_bwd_row(gen, launches, err):
     chunks' Σ exp(cum)·dy ⊗ C, and the carry and inter terms of dx, dB,
     dC); the bytes read x, dt, B, C, dy, A_log and D once and write dx, ddt,
     dB, dC, dA_log and dD once. A call is six kernels, each also timed
-    alone (``pass_ms``). No single PyTorch call computes it."""
+    alone (``pass_ms``); ``earlier_ms`` and ``earlier_pass_ms`` are the
+    same with the earlier per-head chunk kernel. No single PyTorch call
+    computes it."""
     from repro_torch.kernels import ssd_scan as ss
     B, S, H, P, G, N, Q = 2, 2048, 64, 64, 1, 128, 128
     x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16)
@@ -1525,9 +1637,11 @@ def ssd_bwd_row(gen, launches, err):
     nbytes = 2 * (2 * x.numel() + 2 * Bm.numel() + 2 * Cm.numel()) \
         + 2 * dt.numel() * 4 + 4 * H * 4
     _, passes = ss.bwd_launches(*args, chunk=Q)
+    _, earlier = ss.bwd_launches(*args, chunk=Q, per_head=True)
     kpc = kernels_per_call(lambda: ss.ssd_scan_bwd_cuda(*args, chunk=Q))
-    check(round(kpc) == len(passes),
+    check(kpc == len(passes),
           f"ssd_scan_bwd: {kpc} kernels per call, want {len(passes)}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return _row("ssd_scan_bwd", "ssd_scan.cu",
                 "src/repro/kernels/ssd_jnp.py:31 (autodiff of ssd_chunked, no pallas_call)",
                 launches, err,
@@ -1535,9 +1649,12 @@ def ssd_bwd_row(gen, launches, err):
                 cuda_ms(lambda: ss.ssd_scan_bwd_cuda(*args, chunk=Q), 20),
                 cuda_ms(lambda: ss.ssd_scan_bwd_plain(*args, chunk=Q), 2),
                 nbytes, ops, "bf16", None, kernels_per_call=kpc,
+                heads_per_tile=ss.bwd_heads_per_tile(B, S, H, G, Q, sms),
+                earlier_ms=cuda_ms(lambda: ss._ssd_scan_bwd_per_head(*args, chunk=Q), 20),
                 pass_ms={name: cuda_ms(run, 20) for name, run in passes},
+                earlier_pass_ms={name: cuda_ms(run, 20) for name, run in earlier},
                 tensor_core_instr=tensor_core_instr(
-                    "ssd_scan", ("ssd_bwd_mma", "ssd_states_mma")))
+                    "ssd_scan", ("ssd_bwd_tile_mma", "ssd_states_mma")))
 
 
 def main():

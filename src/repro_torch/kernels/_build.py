@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/repro_torch/lib<name>-<hash>.so`` at the
-repository root, then loaded with ``ctypes``. The hash covers the source and
-the flags, so an edited source is rebuilt and a stale library is never
+repository root, then loaded with ``ctypes``. The hash covers the source,
+every header under ``csrc/`` (``*.cuh``, which the sources include) and the
+flags, so an edited source or header is rebuilt and a stale library is never
 loaded. Libraries are built at first use; :func:`build` compiles every
 missing one with one ``nvcc`` process per source, all started together.
 
@@ -42,8 +43,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

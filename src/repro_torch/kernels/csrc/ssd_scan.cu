@@ -83,6 +83,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -363,10 +365,6 @@ int launch(const void* x, const void* dt, const void* A_log, const void* Bm,
 constexpr int kPad = 8;      // bf16 row padding: rows 16 bytes apart mod 128 (ldmatrix)
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // Four 8x8 bf16 matrices; lanes 8i..8i+7 address the rows of matrix i.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -392,18 +390,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x; exactly 0 for x = -inf
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // exp(cum_i − cum_j)·dt_j, the exponent masked to -inf for j > i before exp
 // (exp2(-inf) = 0); cum_i − cum_j from the hi + lo pairs is exact to f32.
@@ -923,25 +909,77 @@ int launch_states(const void* x, const void* dt, const void* A_log, const void* 
 // pass recomputed (S_in per chunk, ~0.2 ms a mamba2 layer against 3.2 GB
 // to keep them for 48 layers); ssd_states_mma<true> for the chunks'
 // Σ exp(cum_i)·dy_i ⊗ C_i; ssd_dstate_pass, the reverse walk over chunks
-// (in place: slot c gets dS[c]); the chunk kernel, one block per (chunk, b,
-// head), writing dx, ddt and per-head dB / dC and per-chunk dA / dD
-// partials; ssd_bwd_finish, the fixed-order sums.
+// (in place: slot c gets dS[c]); the chunk kernel, writing dx, ddt, dB / dC
+// partials and per-chunk dA / dD partials; ssd_bwd_finish, the fixed-order
+// sums of the partials.
 // Bound on the H100 in bf16 at mamba2's training microbatch (2, 2048, 64,
 // 64, G 1, N 128, Q 128): operations, 3.9e10 (~2.6x the forward's per
 // token: C·Bᵀ, dy·xᵀ and three intra products over the causal pairs, and
 // five Q·N·P products), 0.039 ms at 989 TFLOP/s; bytes read x, dt, B, C,
 // dy and write dx, ddt, dB, dC once.
-// bf16 chunk kernel (ssd_bwd_mma, 8 warps, 183 KB of shared memory at
-// (64, 128, 128); ptxas: 203 registers, no spills): warp w owns the 16 rows of block w twice. As rows j it
-// computes (B·Cᵀ) and (x·dyᵀ) for the column blocks i ≥ j on mma.sync, forms
-// e·dt·(C·B) and e·dt·(dy·x) in registers (the f32 C fragment of m16n8 is
-// the A fragment of k16) and multiplies them into dy (→ dx) and C (→ dB);
-// as rows i, (C·Bᵀ) and (dy·xᵀ) for j ≤ i, into B (→ dC). Warp w has
-// nrb − w column blocks and w + 1 row blocks: the same work for every warp.
-// The carry terms are products with dS and S_in (dS·Bᵀ, x·dS, dy·S_in).
-// Every f32 operand (the formed Q×Q blocks, dS, S_in) enters as a bf16
-// hi + lo pair, as in the forward; x, B, C, dy are bf16 already, products
-// accumulate in f32, cum is scanned in f64 and kept as an f32 hi + lo pair.
+//
+// bf16 chunk kernel (ssd_bwd_tile_mma): one block of 8 warps per (chunk, b,
+// group x tile of HT heads), HT from ssd_scan.bwd_heads_per_tile (8 for
+// mamba2: 256 blocks, two waves on 132 SMs; 5 for zamba2's 80 heads); the
+// last tile of a group may be short (H / G = 12 with HT 8 gives 8 + 4).
+// What the heads of a group share is computed once per block:
+//  - C·Bᵀ for the causal 16x16 blocks (mma.sync, f32, in shared memory in
+//    fragment order), reused by every head of the tile;
+//  - dB and dC's intra terms by one identity. With M^h_ij = e^h_ij·dt^h_j·
+//    (dy^h_i·x^h_j), masked to i ≥ j, dB_intra_j = Σ_i (Σ_h M^h_ij)·C_i and
+//    dC_intra_i = Σ_j (Σ_h M^h_ij)·B_j: each head adds its M to Σ M (f32,
+//    shared memory, fragment order, each block owned by one warp), and two
+//    products per tile follow the last head (Σ Mᵀ as A fragments for dB; for
+//    dC the same blocks transposed in registers with movmatrix).
+// Per head, warp w owns row block w (as rows j of dx and dB, rows i of dC):
+//  - dy·xᵀ once per block i ≥ j (x_j·dy_iᵀ on mma.sync), used for Σ M, the
+//    T_ij sums of d cum in both orientations (rows from registers, columns
+//    through f64 partials per row block summed in order) and dx's intra term
+//    G = (C_i·B_j)·e_ij·dt_j into dy (G as bf16 hi + lo A fragments);
+//  - the products with dS and S_in on wgmma (RS: A = B, x or dy rows from
+//    registers; B = the state, bf16 hi + lo in 128-byte-swizzled boxes):
+//    dx's carry w_j·B_j·dSᵀ (K-major B), dB's carry w_j·x_jᵀ·dS and dC's
+//    inter exp(cum_i)·dy_i·S_in (MN-major B, 64 state columns a product).
+//    dB sums over the tile's heads in registers; dC in its partial in device
+//    memory, which each thread alone reads back and adds to (registers
+//    for both spilled ~500 bytes and ran 10% slower on the card);
+//  - dS, then S_in, arrive as raw f32 by one bulk copy each (an mbarrier),
+//    S_in while the intra terms run, the next head's dS, x and dy while the
+//    last phase and the end of the chunk run; each is converted in place to
+//    the hi + lo boxes. The last warp (the least intra work) scans the next
+//    head's cum meanwhile; the end of the chunk (d cum's reverse cumsum,
+//    ddt, dA) runs on Q threads.
+//  Partials are (B, S, G x tiles, N): ssd_bwd_finish reads HT times fewer
+//  bytes than with a partial per head.
+// Rounding points, as the per-head kernel: x, B, C, dy are bf16; every f32
+// operand (G, Σ M, dS, S_in) enters as a bf16 hi + lo pair; products
+// accumulate in f32; cum is scanned in f64 and kept as an f32 hi + lo pair;
+// the T_ij sums are f64; every exponent is masked before exp. Σ M is summed
+// in f32 before its hi + lo split, where the per-head kernel split each
+// head's M.
+// ptxas (sm_90a, -O3): ssd_bwd_tile_mma 255 registers, 112 bytes of spill
+// stores (the dB accumulators, live across the head loop, are 64 registers);
+// 231,176 bytes of shared memory at (64, 128, 128), one block per SM.
+// Where a head's time goes (NVIDIA H100 80GB HBM3, clock64 stamps of one
+// block, ~47k cycles a head): warp 0's intra loop ~16k (8 column blocks;
+// warp 7 has 1; the f64 column sums were 4k of it before their shuffles
+// became a reduce-scatter), the dC phase ~8k, the conversions and waits
+// the rest. Handing the heavy warps' blocks to light ones through slots in
+// C's buffer (C brought back by bulk copies) balanced the loop but ran
+// 0.534 ms against 0.438: the slots, the extra barrier and the registers
+// cost more than the imbalance.
+//
+// The earlier chunk kernel (ssd_bwd_mma, on no path; _ssd_scan_bwd_per_head
+// in ssd_scan.py times it), one block per (chunk, b, head), 8 warps, 183 KB
+// of shared memory at (64, 128, 128), ptxas 187 registers, no spills: warp
+// w owns the 16 rows of block w twice. As rows j it computes (B·Cᵀ) and
+// (x·dyᵀ) for the column blocks i ≥ j on mma.sync, forms e·dt·(C·B) and
+// e·dt·(dy·x) in registers (the f32 C fragment of m16n8 is the A fragment
+// of k16) and multiplies them into dy (→ dx) and C (→ dB); as rows i, (C·Bᵀ)
+// and (dy·xᵀ) for j ≤ i, into B (→ dC). Warp w has nrb − w column blocks
+// and w + 1 row blocks: the same work for every warp, at the price of C·Bᵀ
+// and dy·xᵀ computed twice. The carry terms are products with dS and S_in
+// (dS·Bᵀ, x·dS, dy·S_in). It writes dB / dC partials per head (B, S, H, N).
 // The f32 instance (ssd_states_f64, ssd_walk_f64, ssd_bwd_cuda_cores) runs the
 // same steps on the CUDA cores in f64, for the 1e-4 check (see below why).
 
@@ -1471,6 +1509,669 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_mma(
                  dA_part, dD_part, ((size_t)b * nc + c) * H + h);
 }
 
+// ---- the bf16 chunk kernel by tiles of heads ----
+
+constexpr int kLoads = 8;              // float4 loads a thread keeps in flight
+constexpr int kBox = 64 * 128;         // bytes of a [64][64] bf16 box, 128-byte swizzle
+
+// The sums of a and b over the block, in a fixed order (as block_sum_f32);
+// ``red`` holds 2 · kThreads / 32 floats.
+__device__ __forceinline__ void block_sum2_f32(float a, float b, float* red, float& sa,
+                                               float& sb) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+    red[threadIdx.x >> 5] = a;
+    red[(threadIdx.x >> 5) + (blockDim.x >> 5)] = b;
+  }
+  __syncthreads();
+  sa = sb = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    sa += red[w];
+    sb += red[w + (blockDim.x >> 5)];
+  }
+}
+
+// Byte offsets of ssd_bwd_tile_mma's shared memory, from a 1024-byte aligned
+// base. dS and then S_in of the current head share one hi + lo buffer, each
+// [64 p][N] in boxes of 64 state columns, 128-byte swizzle (the wgmma B
+// layout; rows p >= P and columns n >= N stay 0). x, dy, B and C are padded
+// rows (ldmatrix) of at least 64 rows, the rows past Q zero. The B·Cᵀ
+// blocks and Σ Mᵀ are kept in fragment order (rows j, columns i ≥ j; 256
+// floats a 16x16 block, 8 a lane).
+struct TileSmem {
+  size_t s_hi, s_lo, xs, dys, bs, cs, cb, msum, cumx, rows, part_row, red2, red, bar, bytes;
+  __host__ __device__ TileSmem(int P, int N, int Q) {
+    const int QR = Q > 64 ? Q : 64, NB = (N + 63) / 64;
+    const size_t row_p = (size_t)(P + kPad) * 2, row_n = (size_t)(N + kPad) * 2;
+    const int nrb = Q / 16, blocks = nrb * (nrb + 1) / 2;
+    s_hi = 0;                                // bf16 NB x [64][64]: dS, then S_in, hi
+    s_lo = s_hi + (size_t)NB * kBox;         //                     and lo
+    xs = s_lo + (size_t)NB * kBox;           // bf16 [QR][P + kPad]  x of the head
+    dys = xs + QR * row_p;                   //                      dy
+    bs = dys + QR * row_p;                   // bf16 [QR][N + kPad]  B
+    cs = bs + QR * row_n;                    //                      C
+    cb = cs + QR * row_n;                    // f32 [blocks][256]   B_j·C_i
+    msum = cb + (size_t)blocks * 1024;       // f32 [blocks][256]   Σ_h M^h_ij (rows j)
+    cumx = msum + (size_t)blocks * 1024;     // f32 [2][3][Q]: cum hi, lo and dt of a
+                                             // head, two heads (this one, the next)
+    rows = cumx + (size_t)6 * Q * 4;         // BwdRows (its dts unused: cumx has them)
+    part_row = rows + bwd_rows_bytes(Q);     // f64 [nrb][Q]: Σ over a block's rows j of T_ij
+    red2 = part_row + (size_t)nrb * Q * 8;   // f64 [3][kThreads / 32]
+    red = red2 + 3 * kThreads / 32 * 8;      // f32 [2][kThreads / 32]
+    bar = red + 2 * kThreads / 32 * 4;       // u64: the state copies' mbarrier
+    bytes = bar + 8 + 1024;                  // + alignment
+  }
+};
+
+// The byte offset of element (p, n) in NB boxes of [64][64] bf16, 128-byte
+// swizzle: the 16-byte chunk n / 8 of row p sits at chunk (n / 8) ^ (p % 8).
+__device__ __forceinline__ uint32_t sw128_at(int p, int n) {
+  const int c = n & 63;
+  return (uint32_t)((n >> 6) * kBox + p * 128 + ((((c >> 3) ^ (p & 7)) << 4) | ((c & 7) << 1)));
+}
+
+// d (64 x 64) += A (64 x 16, bf16 registers) · B (16 x 64, shared memory,
+// K-major): the wgmma_m64n64_rs of hopper.cuh without trans-b.
+__device__ __forceinline__ void wgmma_m64n64_rs_kmajor(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The A fragments of rows [r0, r0 + 16) of a padded bf16 tile (lda), k16
+// steps 0 .. steps − 1 (the mma.sync m16n8k16 A layout, which is wgmma's).
+template <int KS>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[KS][4], const bf16* A, int lda,
+                                             int r0, int steps, int lane) {
+  const int mat = lane >> 3, r8 = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    if (kk < steps) ldsm_x4(a[kk], A + (r0 + r8 + (mat & 1) * 8) * lda + 16 * kk + (mat >> 1) * 8);
+}
+
+// d (64 rows of the warpgroup x 64) = A · (S_hi + S_lo) over its K steps on
+// wgmma, A the fragments above. kmajor: B = Sᵀ (K = the state columns n, the
+// 64 columns p), else B = S's columns [64 c, 64 c + 64) (K = rows p).
+template <int KS>
+__device__ __forceinline__ void wgmma_hilo(float (&d)[32], const uint32_t (&a)[KS][4],
+                                           uint32_t s_hi, uint32_t s_lo, int steps,
+                                           bool kmajor, int c) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) d[j] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    if (kk < steps) {
+      if (kmajor) {
+        const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+        wgmma_m64n64_rs_kmajor(d, a[kk], sw128_desc(s_hi + off, 16, 1024));
+        wgmma_m64n64_rs_kmajor(d, a[kk], sw128_desc(s_lo + off, 16, 1024));
+      } else {
+        const uint32_t off = c * kBox + kk * 16 * 128;
+        wgmma_m64n64_rs(d, a[kk], sw128_desc(s_hi + off, kBox, 1024));
+        wgmma_m64n64_rs(d, a[kk], sw128_desc(s_lo + off, kBox, 1024));
+      }
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(d);
+}
+
+// Orders this thread's shared-memory accesses through the generic proxy
+// before later ones through the async proxy (wgmma operands, bulk copies).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The raw f32 state S (P x N, contiguous) into the start of the state boxes
+// (4·P·N bytes fit in them: N <= 64·NB) by one bulk copy, issued by the
+// calling thread; it completes on bar.
+__device__ __forceinline__ void fetch_state(uint8_t* s, const float* __restrict__ src, int P,
+                                            int N, uint64_t* bar) {
+  const uint32_t bytes = (uint32_t)P * N * 4;
+  fence_proxy_async();                 // after the block's reads of the boxes (barrier before)
+  mbar_expect_tx(bar, bytes);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(s)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The raw state fetch_state left in the boxes (landed: the caller waited on
+// its barrier), converted in place to the
+// swizzled bf16 hi + lo boxes (rows p >= P and columns n >= N keep stale
+// bytes: they reach only products' columns that are never read). Every
+// thread reads its kLoads float4 first, then, after a barrier, writes; the
+// caller's barrier publishes the result. With other: adds ⟨other, S⟩ to
+// *dot, other the kLoads float4 of another P x N array at this thread's
+// indices (threadIdx.x + u · kThreads).
+__device__ __forceinline__ void convert_state(uint8_t* s_hi, uint8_t* s_lo, int P, int N,
+                                              const float4* other, float* dot) {
+  const int total = P * N / 4;         // <= kLoads · kThreads
+  float4 v[kLoads];
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    v[u] = i < total ? reinterpret_cast<const float4*>(s_hi)[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (other != nullptr) {
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u)
+      *dot += other[u].x * v[u].x + other[u].y * v[u].y + other[u].z * v[u].z +
+              other[u].w * v[u].w;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if (i < total) {
+      const int p = i / (N / 4), n = (i - p * (N / 4)) * 4;
+      uint2 hi, lo;
+      split_bf16(v[u].x, v[u].y, hi.x, lo.x);
+      split_bf16(v[u].z, v[u].w, hi.y, lo.y);
+      *reinterpret_cast<uint2*>(s_hi + sw128_at(p, n)) = hi;
+      *reinterpret_cast<uint2*>(s_lo + sw128_at(p, n)) = lo;
+    }
+  }
+  fence_proxy_async();                 // the boxes are wgmma operands next
+}
+
+// The index of block (rows jb, columns ib ≥ jb) among the causal blocks
+__device__ __forceinline__ int tri_block(int jb, int ib, int nrb) {
+  return jb * nrb - jb * (jb - 1) / 2 + (ib - jb);
+}
+
+// One 8x8 bf16 matrix of a warp's fragment, transposed
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// The end of a head's chunk, by the block's first Q threads, one step each:
+// d cum (with d seg = Σ V_j + exp(seg)·⟨dS, S_in⟩ at the last step; the
+// intra terms' Σ_j T_ij from the row blocks' partials, in order), its
+// reverse cumsum d(dt·A) in f64 (within warps, then over the warps' totals),
+// ddt for the valid steps, and this chunk's dA = Σ dt·d(dt·A) and dD
+// partials. Sums run in a fixed order; red2 holds 3 · kThreads / 32 f64.
+__device__ __forceinline__ void tile_tail(const BwdRows& r, const double* part_row, int Q,
+                                          int nval, float A, double eseg_dot, double dD_sum,
+                                          float* ddt, size_t ddt_row0, int H, double* dA_part,
+                                          double* dD_part, size_t part, double* red2) {
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5, nw = Q / 32;
+  double d = 0.0, vs = 0.0;
+  if (t < Q) {
+    double trow = 0.0;
+    for (int jb = 0; jb <= t / 16; ++jb) trow += part_row[(size_t)jb * Q + t];
+    vs = r.vs[t];
+    d = trow - r.tcol[t] + r.us[t] - vs;
+  }
+  double suf = d, vw = vs;             // suffix sums over lanes >= this one; Σ V_j
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double x = __shfl_down_sync(0xffffffffu, suf, o);
+    if (lane + o < 32) suf += x;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) vw += __shfl_xor_sync(0xffffffffu, vw, o);
+  if (lane == 0 && w < nw) {
+    red2[w] = suf;                     // the warp's total
+    red2[kThreads / 32 + w] = vw;
+  }
+  __syncthreads();
+  double da = 0.0;
+  if (t < Q) {
+    double later = 0.0, vsum = 0.0;
+    for (int k = 0; k < nw; ++k) {
+      vsum += red2[kThreads / 32 + k];
+      if (k > w) later += red2[k];
+    }
+    const double dla = suf + later + vsum + eseg_dot;   // d seg is in every suffix
+    da = (double)r.dts[t] * dla;
+    if (t < nval) ddt[ddt_row0 + (size_t)t * H] = (float)((double)r.ddt_dir[t] + (double)A * dla);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) da += __shfl_xor_sync(0xffffffffu, da, o);
+  if (lane == 0 && w < nw) red2[2 * (kThreads / 32) + w] = da;
+  __syncthreads();
+  if (t == 0) {
+    double sum = 0.0;
+    for (int k = 0; k < nw; ++k) sum += red2[2 * (kThreads / 32) + k];
+    dA_part[part] = sum;
+    dD_part[part] = dD_sum;
+  }
+}
+
+// The bf16 chunk kernel, one block per (chunk, b, group x tile of HT heads).
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_tile_mma(
+    const bf16* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ A_log, const bf16* __restrict__ Bm,
+    const bf16* __restrict__ Cm, const float* __restrict__ Dp, const bf16* __restrict__ dy,
+    const float* __restrict__ s_in, const float* __restrict__ ds_out,
+    bf16* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dB_part,
+    float* __restrict__ dC_part, double* __restrict__ dA_part, double* __restrict__ dD_part,
+    int S, int H, int G, int P, int N, int Q, int HT) {
+  extern __shared__ uint8_t smem_tile[];
+  // the swizzled state boxes need a 1024-byte aligned base
+  uint8_t* base = smem_tile + ((1024 - (smem_u32(smem_tile) & 1023)) & 1023);
+  const TileSmem L(P, N, Q);
+  const int ldp = P + kPad, ldn = N + kPad, QR = Q > 64 ? Q : 64;
+  uint8_t* s_hi = base + L.s_hi;
+  uint8_t* s_lo = base + L.s_lo;
+  bf16* xs = reinterpret_cast<bf16*>(base + L.xs);
+  bf16* dys = reinterpret_cast<bf16*>(base + L.dys);
+  bf16* bs = reinterpret_cast<bf16*>(base + L.bs);
+  bf16* cs = reinterpret_cast<bf16*>(base + L.cs);
+  float* cb = reinterpret_cast<float*>(base + L.cb);
+  float* msum = reinterpret_cast<float*>(base + L.msum);
+  float* cumx = reinterpret_cast<float*>(base + L.cumx);
+  BwdRows R = bwd_rows(base + L.rows, Q);
+  double* part_row = reinterpret_cast<double*>(base + L.part_row);
+  double* red2 = reinterpret_cast<double*>(base + L.red2);
+  float* red = reinterpret_cast<float*>(base + L.red);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + L.bar);
+
+  const int c = blockIdx.x, b = blockIdx.y, nc = gridDim.x;
+  const int heads = H / G, tiles = (heads + HT - 1) / HT;
+  const int g = blockIdx.z / tiles, tile = blockIdx.z - g * tiles;
+  const int h0 = g * heads + tile * HT, nh = min(HT, heads - tile * HT);
+  const int s0 = c * Q, nval = min(Q, S - s0), nrb = Q / 16, NB = (N + 63) / 64;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  // warp w owns row block w (rows 16w .. 16w + 15): as rows j of dx and dB, as
+  // rows i of dC. A warpgroup runs wgmma over its 64 rows while it has a row
+  // block; its warps past nrb (Q = 32) multiply the zero rows.
+  const bool wg_on = 64 * (warp >> 2) < Q, own = warp < nrb;
+  const int r0 = 16 * warp, ra = r0 + g4, rb = ra + 8;
+  const uint32_t shi = smem_u32(s_hi), slo = smem_u32(s_lo);
+
+  // x, dy and the raw dS of head hh (its loads stay in flight until needed);
+  // the states' barrier completes once a copy, phase `phase` next
+  int phase = 0;
+  auto fetch_head = [&](int hh) {
+    const int h = h0 + hh;
+    const size_t xo = (((size_t)b * S + s0) * H + h) * P;
+    copy_rows(xs, ldp, x + xo, (size_t)H * P, QR, nval, P);
+    copy_rows(dys, ldp, dy + xo, (size_t)H * P, QR, nval, P);
+    cp_async_commit();
+    if (tid == 0) fetch_state(s_hi, ds_out + (((size_t)b * nc + c) * H + h) * P * N, P, N, bar);
+  };
+  auto wait_state = [&]() {
+    mbar_wait(bar, phase);
+    phase ^= 1;
+  };
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const size_t bo = (((size_t)b * S + s0) * G + g) * N;
+  copy_rows(bs, ldn, Bm + bo, (size_t)G * N, QR, nval, N);
+  copy_rows(cs, ldn, Cm + bo, (size_t)G * N, QR, nval, N);
+  cp_async_commit();
+  fetch_head(0);
+  cp_async_wait<1>();                  // B and C
+  __syncthreads();
+  // B_j·C_i for the causal blocks, once for the tile's heads (round robin
+  // over the warps); Σ Mᵀ starts at 0
+  for (int jb = 0, k = 0; jb < nrb; ++jb)
+    for (int ib = jb; ib < nrb; ++ib, ++k) {
+      if (k % (kThreads / 32) != warp) continue;
+      float acc[2][4];
+      mma_abt(acc, bs, ldn, 16 * jb, cs, ldn, 16 * ib, N, lane);
+      float4* dst = reinterpret_cast<float4*>(cb + k * 256) + lane * 2;
+      dst[0] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+      dst[1] = make_float4(acc[1][0], acc[1][1], acc[1][2], acc[1][3]);
+      float4* ms = reinterpret_cast<float4*>(msum + k * 256) + lane * 2;
+      ms[0] = ms[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+
+  // dB (rows j) of the warp's row block, summed over the tile's heads in
+  // registers; dC (rows i) in its partial in device memory, which only this
+  // thread reads and writes (rows ra and rb, its columns)
+  float acc_b[kMaxN / 8][4];
+  zero_acc(acc_b);
+  const size_t parts = (size_t)gridDim.z;   // G x tiles partials a row
+  const size_t po = (((size_t)b * S + s0) * parts + blockIdx.z) * N;
+  float* dc_a = dC_part + po + (size_t)ra * parts * N;   // row ra (rb: + 8 rows)
+  float* dc_b = dc_a + 8 * parts * N;
+
+  // one warp: dt of head hh and cum, its prefix sums of dt·A in f64, kept as
+  // an f32 hi + lo pair, into cum buffer hh % 2
+  auto scan_head = [&](int hh) {
+    float* cx = cumx + (hh & 1) * 3 * Q;
+    for (int i = lane; i < Q; i += 32)
+      cx[2 * Q + i] = i < nval ? dt[((size_t)b * S + s0 + i) * H + h0 + hh] : 0.f;
+    __syncwarp();
+    double cv[kMaxQ / 32];
+    const int per = Q / 32;
+    warp_cum(cx + 2 * Q, -expf(A_log[h0 + hh]), per, lane, cv);
+#pragma unroll
+    for (int e = 0; e < kMaxQ / 32; ++e) {
+      if (e < per) {
+        const float hi = (float)cv[e];
+        cx[lane * per + e] = hi;
+        cx[Q + lane * per + e] = (float)(cv[e] - (double)hi);
+      }
+    }
+  };
+  if (warp == 0) scan_head(0);
+
+  for (int hh = 0; hh < nh; ++hh) {
+    const int h = h0 + hh;
+    const size_t xo = (((size_t)b * S + s0) * H + h) * P;
+    const size_t so = (((size_t)b * nc + c) * H + h) * P * N;
+    const float A = -expf(A_log[h]);
+    const float* cum_hi = cumx + (hh & 1) * 3 * Q;
+    const float* cum_lo = cum_hi + Q;
+    R.dts = cumx + (hh & 1) * 3 * Q + 2 * Q;
+    cp_async_wait<0>();                // x, dy and the raw dS of head hh
+    wait_state();
+    __syncthreads();
+    convert_state(s_hi, s_lo, P, N, nullptr, nullptr);   // dS as bf16 hi + lo
+    __syncthreads();
+    const int rra = own ? ra : 0, rrb = own ? rb : 0;
+    const float seg_hi = cum_hi[Q - 1], seg_lo = cum_lo[Q - 1];
+    const float hia = cum_hi[rra], loa = cum_lo[rra], hib = cum_hi[rrb], lob = cum_lo[rrb];
+    const float dta = R.dts[rra], dtb = R.dts[rrb];
+    const float era = ex2(kLog2e * ((seg_hi - hia) + (seg_lo - loa)));   // exp(seg − cum_j)
+    const float erb = ex2(kLog2e * ((seg_hi - hib) + (seg_lo - lob)));
+    const float wa = era * dta, wb = erb * dtb;                          // w_j
+
+    // ---- rows j, the products with dS: dB's carry w_j·x_jᵀ·dS (columns n),
+    // and dx's carry w_j·B_j·dSᵀ (columns p) with its dot with x_j ----
+    float acc_p[kMaxP / 8][4];         // dx: P columns (the wgmma's d[4 nb + e])
+    if (wg_on) {
+      {
+        uint32_t a[kMaxP / 16][4];
+        load_a_frags(a, xs, ldp, r0, P / 16, lane);
+#pragma unroll
+        for (int cn = 0; cn < kMaxN / 64; ++cn) {
+          if (cn < NB) {
+            float d[32];
+            wgmma_hilo(d, a, shi, slo, P / 16, false, cn);
+#pragma unroll
+            for (int nb = 0; nb < 8; ++nb) {
+              if (own && 64 * cn + 8 * nb < N) {
+                acc_b[8 * cn + nb][0] += wa * d[4 * nb];
+                acc_b[8 * cn + nb][1] += wa * d[4 * nb + 1];
+                acc_b[8 * cn + nb][2] += wb * d[4 * nb + 2];
+                acc_b[8 * cn + nb][3] += wb * d[4 * nb + 3];
+              }
+            }
+          }
+        }
+      }
+      uint32_t a[kMaxN / 16][4];       // K = the N states
+      load_a_frags(a, bs, ldn, r0, N / 16, lane);
+      wgmma_hilo(reinterpret_cast<float(&)[32]>(acc_p), a, shi, slo, N / 16, true, 0);
+    }
+    __syncthreads();                   // every warp is done with dS
+    if (tid == 0) fetch_state(s_hi, s_in + so, P, N, bar);   // arrives during the intra work
+
+    // ---- rows j: the intra terms into dx, the direct ddt, d cum at j, Σ Mᵀ ----
+    if (own) {
+      float xa, xb;
+      frag_row_dots(acc_p, xs + ra * ldp, xs + rb * ldp, P, t4, xa, xb);
+      scale_rows(acc_p, wa, wb);
+      // column blocks i ≥ j: T_ij = (C_i·B_j)·e_ij·(dy_i·x_j)·dt_j
+      float ta = 0.f, tb = 0.f;        // Σ_i T_ij / dt_j (the direct ddt)
+      double Ta = 0.0, Tb = 0.0;       // Σ_i T_ij
+      for (int ib = warp; ib < nrb; ++ib) {
+        const int blk = tri_block(warp, ib, nrb);
+        const float4* cp = reinterpret_cast<const float4*>(cb + blk * 256) + lane * 2;
+        const float4 c0 = cp[0], c1 = cp[1];
+        const float cbt[2][4] = {{c0.x, c0.y, c0.z, c0.w}, {c1.x, c1.y, c1.z, c1.w}};
+        float dyx[2][4];
+        mma_abt(dyx, xs, ldp, r0, dys, ldp, 16 * ib, P, lane);   // x_j·dy_i
+        float gv[8], mv[8];
+        double col[2][2];              // Σ over this thread's rows of T at columns i, i + 1
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = 16 * ib + 8 * u + 2 * t4;
+          const float2 hi = *reinterpret_cast<const float2*>(cum_hi + i);
+          const float2 lo = *reinterpret_cast<const float2*>(cum_lo + i);
+          const float e[4] = {masked_decay(i, ra, hi.x, lo.x, hia, loa),
+                              masked_decay(i + 1, ra, hi.y, lo.y, hia, loa),
+                              masked_decay(i, rb, hi.x, lo.x, hib, lob),
+                              masked_decay(i + 1, rb, hi.y, lo.y, hib, lob)};
+          col[u][0] = col[u][1] = 0.0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float dtj = q < 2 ? dta : dtb;
+            const float ce = cbt[u][q] * e[q], t = ce * dyx[u][q];
+            const double td = (double)(t * dtj);
+            gv[4 * u + q] = ce * dtj;
+            mv[4 * u + q] = e[q] * dtj * dyx[u][q];
+            col[u][q & 1] += td;
+            if (q < 2) {
+              ta += t;
+              Ta += td;
+            } else {
+              tb += t;
+              Tb += td;
+            }
+          }
+        }
+        float4* mp = reinterpret_cast<float4*>(msum + blk * 256) + lane * 2;
+        float4 m0 = mp[0], m1 = mp[1];
+        m0.x += mv[0];
+        m0.y += mv[1];
+        m0.z += mv[2];
+        m0.w += mv[3];
+        m1.x += mv[4];
+        m1.y += mv[5];
+        m1.z += mv[6];
+        m1.w += mv[7];
+        mp[0] = m0;
+        mp[1] = m1;
+        // T summed over the block's 16 rows j (the 8 lanes of a column,
+        // lane bits 2-4), for the 16 columns i: d cum at i. A reduce-scatter:
+        // bit 4 keeps half u, bit 3 parity q, then bit 2 adds the last pair.
+        {
+          const bool b4 = lane & 16, b3 = lane & 8;
+          double h0 = b4 ? col[1][0] : col[0][0], h1 = b4 ? col[1][1] : col[0][1];
+          h0 += __shfl_xor_sync(0xffffffffu, b4 ? col[0][0] : col[1][0], 16);
+          h1 += __shfl_xor_sync(0xffffffffu, b4 ? col[0][1] : col[1][1], 16);
+          double v = b3 ? h1 : h0;
+          v += __shfl_xor_sync(0xffffffffu, b3 ? h0 : h1, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          if ((lane & 4) == 0)
+            part_row[(size_t)warp * Q + 16 * ib + 8 * b4 + 2 * t4 + b3] = v;
+        }
+        uint32_t gh[4], gl[4];
+        frag_hi_lo(gv, gh, gl);
+        mma_frag_rows(acc_p, gh, gl, dys, ldp, 16 * ib, P, lane);   // dx += Gᵀ·dy_i
+      }
+      ta += __shfl_xor_sync(0xffffffffu, ta, 1);
+      ta += __shfl_xor_sync(0xffffffffu, ta, 2);
+      tb += __shfl_xor_sync(0xffffffffu, tb, 1);
+      tb += __shfl_xor_sync(0xffffffffu, tb, 2);
+      Ta += __shfl_xor_sync(0xffffffffu, Ta, 1);
+      Ta += __shfl_xor_sync(0xffffffffu, Ta, 2);
+      Tb += __shfl_xor_sync(0xffffffffu, Tb, 1);
+      Tb += __shfl_xor_sync(0xffffffffu, Tb, 2);
+      if (t4 == 0) {
+        R.ddt_dir[ra] = ta + era * xa;
+        R.ddt_dir[rb] = tb + erb * xb;
+        R.tcol[ra] = Ta;
+        R.tcol[rb] = Tb;
+        R.vs[ra] = wa * xa;
+        R.vs[rb] = wb * xb;
+      }
+      const float Dh = Dp[h];
+#pragma unroll
+      for (int nt = 0; nt < kMaxP / 8; ++nt) {
+        if (8 * nt < P) {
+          const int p = 8 * nt + 2 * t4;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int j = ra + 8 * half;
+            if (j < nval) {
+              const float2 d = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(dys + j * ldp + p));
+              *reinterpret_cast<uint32_t*>(dx + xo + (size_t)j * H * P + p) =
+                  pack_bf16(acc_p[nt][2 * half] + Dh * d.x, acc_p[nt][2 * half + 1] + Dh * d.y);
+            }
+          }
+        }
+      }
+    }
+    // the last warp has the least intra work: it scans the next head meanwhile
+    if (warp == kThreads / 32 - 1 && hh + 1 < nh) scan_head(hh + 1);
+    float dd = 0.f;                    // dD: Σ dy·x over the chunk
+    for (int i = tid; i < nval * P / 2; i += kThreads) {
+      const int j = i / (P / 2), p = (i - j * (P / 2)) * 2;
+      const float2 a =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xs + j * ldp + p));
+      const float2 d =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dys + j * ldp + p));
+      dd += a.x * d.x + a.y * d.y;
+    }
+    float4 ds[kLoads];                 // dS again from device memory, for ⟨dS, S_in⟩
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = tid + u * kThreads;
+      ds[u] = i < P * N / 4 ? *reinterpret_cast<const float4*>(ds_out + so + 4 * (size_t)i)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    wait_state();                      // S_in
+    __syncthreads();
+    float dot = 0.f;
+    convert_state(s_hi, s_lo, P, N, ds, &dot);   // S_in as bf16 hi + lo
+    float dot_all, dD_all;             // (the barriers also publish S_in)
+    block_sum2_f32(dot, dd, red, dot_all, dD_all);
+
+    // ---- rows i: inter exp(cum_i)·dy_iᵀ·S_in into dC, and its dot with C_i ----
+    if (wg_on) {
+      const float eca = ex2(kLog2e * (hia + loa)), ecb = ex2(kLog2e * (hib + lob));
+      float ua = 0.f, ub = 0.f;
+      uint32_t a[kMaxP / 16][4];
+      load_a_frags(a, dys, ldp, r0, P / 16, lane);
+#pragma unroll
+      for (int cn = 0; cn < kMaxN / 64; ++cn) {
+        if (cn < NB) {
+          // this chunk's partial so far, read before the product so that the
+          // reads overlap it
+          float2 oa[8], ob[8];
+#pragma unroll
+          for (int nb = 0; nb < 8; ++nb) {
+            const int n = 64 * cn + 8 * nb + 2 * t4;
+            const bool col = own && hh > 0 && 64 * cn + 8 * nb < N;
+            oa[nb] = col && ra < nval ? *reinterpret_cast<const float2*>(dc_a + n)
+                                      : make_float2(0.f, 0.f);
+            ob[nb] = col && rb < nval ? *reinterpret_cast<const float2*>(dc_b + n)
+                                      : make_float2(0.f, 0.f);
+          }
+          float d[32];
+          wgmma_hilo(d, a, shi, slo, P / 16, false, cn);
+#pragma unroll
+          for (int nb = 0; nb < 8; ++nb) {
+            const int n = 64 * cn + 8 * nb + 2 * t4;
+            if (own && 64 * cn + 8 * nb < N) {
+              const float2 ca = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(cs + ra * ldn + n));
+              const float2 cbv = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(cs + rb * ldn + n));
+              const float v0 = eca * d[4 * nb], v1 = eca * d[4 * nb + 1];
+              const float v2 = ecb * d[4 * nb + 2], v3 = ecb * d[4 * nb + 3];
+              ua += v0 * ca.x + v1 * ca.y;
+              ub += v2 * cbv.x + v3 * cbv.y;
+              if (ra < nval)
+                *reinterpret_cast<float2*>(dc_a + n) = make_float2(oa[nb].x + v0, oa[nb].y + v1);
+              if (rb < nval)
+                *reinterpret_cast<float2*>(dc_b + n) = make_float2(ob[nb].x + v2, ob[nb].y + v3);
+            }
+          }
+        }
+      }
+      ua += __shfl_xor_sync(0xffffffffu, ua, 1);
+      ua += __shfl_xor_sync(0xffffffffu, ua, 2);
+      ub += __shfl_xor_sync(0xffffffffu, ub, 1);
+      ub += __shfl_xor_sync(0xffffffffu, ub, 2);
+      if (own && t4 == 0) {
+        R.us[ra] = ua;
+        R.us[rb] = ub;
+      }
+    }
+    __syncthreads();                   // x, dy and the state boxes are free
+    if (hh + 1 < nh) fetch_head(hh + 1);   // in flight during this head's tail
+    tile_tail(R, part_row, Q, nval, A, exp((double)seg_hi + (double)seg_lo) * dot_all, dD_all,
+              ddt, ((size_t)b * S + s0) * H + h, H, dA_part, dD_part,
+              ((size_t)b * nc + c) * H + h, red2);
+  }
+  __syncthreads();                     // Σ Mᵀ is complete
+
+  if (own) {
+    // dB_j += Σ_{i ≥ j} (Σ_h M_ij)·C_i, with Σ_h Mᵀ as the A fragments (hi + lo)
+    for (int ib = warp; ib < nrb; ++ib) {
+      const float4* mp = reinterpret_cast<const float4*>(msum + tri_block(warp, ib, nrb) * 256) +
+                         lane * 2;
+      const float4 m0 = mp[0], m1 = mp[1];
+      const float v[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+      uint32_t mh[4], ml[4];
+      frag_hi_lo(v, mh, ml);
+      mma_frag_rows(acc_b, mh, ml, cs, ldn, 16 * ib, N, lane);
+    }
+    // dC_i += Σ_{j ≤ i} (Σ_h M_ij)·B_j: block (rows j, columns i) transposed in
+    // registers, its 8x8 quarters moved (movmatrix) and swapped off the diagonal
+    float acc_c[kMaxN / 8][4];
+    zero_acc(acc_c);
+    for (int jb = 0; jb <= warp; ++jb) {
+      const float4* mp = reinterpret_cast<const float4*>(msum + tri_block(jb, warp, nrb) * 256) +
+                         lane * 2;
+      const float4 m0 = mp[0], m1 = mp[1];
+      const float v[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+      uint32_t mh[4], ml[4];
+      frag_hi_lo(v, mh, ml);
+      const uint32_t th[4] = {movmatrix_t(mh[0]), movmatrix_t(mh[2]), movmatrix_t(mh[1]),
+                              movmatrix_t(mh[3])};
+      const uint32_t tl[4] = {movmatrix_t(ml[0]), movmatrix_t(ml[2]), movmatrix_t(ml[1]),
+                              movmatrix_t(ml[3])};
+      mma_frag_rows(acc_c, th, tl, bs, ldn, 16 * jb, N, lane);
+    }
+    store_rows_f32(acc_b, dB_part + po, parts * N, ra, nval, N, t4);
+    float2 oa[kMaxN / 8], ob[kMaxN / 8];   // the inter terms are in the partial
+#pragma unroll
+    for (int nt = 0; nt < kMaxN / 8; ++nt) {
+      const int n = 8 * nt + 2 * t4;
+      oa[nt] = 8 * nt < N && ra < nval ? *reinterpret_cast<const float2*>(dc_a + n)
+                                       : make_float2(0.f, 0.f);
+      ob[nt] = 8 * nt < N && rb < nval ? *reinterpret_cast<const float2*>(dc_b + n)
+                                       : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kMaxN / 8; ++nt) {
+      if (8 * nt < N) {
+        const int n = 8 * nt + 2 * t4;
+        if (ra < nval)
+          *reinterpret_cast<float2*>(dc_a + n) =
+              make_float2(oa[nt].x + acc_c[nt][0], oa[nt].y + acc_c[nt][1]);
+        if (rb < nval)
+          *reinterpret_cast<float2*>(dc_b + n) =
+              make_float2(ob[nt].x + acc_c[nt][2], ob[nt].y + acc_c[nt][3]);
+      }
+    }
+  }
+}
+
 // ---- the f32 instance, on the CUDA cores ----
 // At mamba2's decays ddt_j is the sum of parts ~1e3 times larger than it
 // (the direct term, x_j·dS·B_j, and A·d(dt·A) with A up to 64), which take
@@ -1679,17 +2380,17 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_cuda_cores(
                  H, dA_part, dD_part, ((size_t)b * nc + c) * H + h);
 }
 
-// dB, dC: the per-head partials summed over the heads of each group, in
-// order, in the inputs' dtype; dA_log = A·Σ dA and dD = Σ dD over the
-// (b, chunk) partials, in order, by block 0.
+// dB, dC: the (B, S, G x per_group, N) partials (per head, or per tile of
+// heads) summed over the per_group partials of each group, in order, in the
+// inputs' dtype; dA_log = A·Σ dA and dD = Σ dD over the (b, chunk)
+// partials, in order, by block 0.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_bwd_finish(
     const float* __restrict__ dB_part, const float* __restrict__ dC_part,
     const double* __restrict__ dA_part, const double* __restrict__ dD_part,
     const float* __restrict__ A_log, T* __restrict__ dB, T* __restrict__ dC,
     float* __restrict__ dA_log, float* __restrict__ dD, int BS, int H, int G, int N,
-    int parts) {
-  const int R = H / G;
+    int parts, int per_group) {
   const size_t total = (size_t)BS * G * N;
   for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
        idx += (size_t)gridDim.x * blockDim.x) {
@@ -1697,9 +2398,9 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_finish(
     const size_t rest = idx / N;
     const int g = (int)(rest % G);
     const size_t bs = rest / G;
-    const size_t o = (bs * H + (size_t)g * R) * N + n;
+    const size_t o = ((bs * G + g) * per_group) * N + n;
     float sb = 0.f, sc = 0.f;
-    for (int r = 0; r < R; ++r) {
+    for (int r = 0; r < per_group; ++r) {
       sb += dB_part[o + (size_t)r * N];
       sc += dC_part[o + (size_t)r * N];
     }
@@ -1752,7 +2453,9 @@ int launch_states_f64(const void* x, const void* dt, const void* A_log, const vo
 template <typename T>
 int launch_finish(const void* dB_part, const void* dC_part, const void* dA_part,
                   const void* dD_part, const void* A_log, void* dB, void* dC, void* dA_log,
-                  void* dD, int Bb, int S, int H, int G, int N, int Q, void* stream) {
+                  void* dD, int Bb, int S, int H, int G, int N, int Q, int per_group,
+                  void* stream) {
+  if (per_group < 1) return (int)cudaErrorInvalidValue;
   const size_t total = (size_t)Bb * S * G * N;
   const int blocks = (int)((total + kThreads - 1) / kThreads < 4096
                                ? (total + kThreads - 1) / kThreads : 4096);
@@ -1761,7 +2464,7 @@ int launch_finish(const void* dB_part, const void* dC_part, const void* dA_part,
       static_cast<const double*>(dA_part), static_cast<const double*>(dD_part),
       static_cast<const float*>(A_log), static_cast<T*>(dB), static_cast<T*>(dC),
       static_cast<float*>(dA_log), static_cast<float*>(dD), Bb * S, H, G, N,
-      Bb * ((S + Q - 1) / Q));
+      Bb * ((S + Q - 1) / Q), per_group);
   return (int)cudaGetLastError();
 }
 
@@ -1896,13 +2599,39 @@ int ssd_f64_walk(void* states, const void* decay, const void* in, void* out, int
   return (int)cudaGetLastError();
 }
 
-// the chunk kernel: dx, ddt, per-head dB / dC and per-chunk dA / dD partials
-// (x, B, C, dy, dx bf16, 16-byte aligned)
+// the chunk kernel: dx, ddt, dB / dC partials per tile of HT heads (B, S,
+// G x ceil((H / G) / HT), N) and per-chunk dA / dD partials (x, B, C, dy, dx
+// bf16, 16-byte aligned)
 int ssd_bwd_bf16(const void* x, const void* dt, const void* A_log, const void* Bm,
                  const void* Cm, const void* Dp, const void* dy, const void* states,
                  const void* dstates, void* dx, void* ddt, void* dB_part, void* dC_part,
                  void* dA_part, void* dD_part, int Bb, int S, int H, int G, int P, int N,
-                 int Q, void* stream) {
+                 int Q, int HT, void* stream) {
+  if (!shapes_ok(S, H, G, P, N, Q) || HT < 1 || HT > H / G) return (int)cudaErrorInvalidValue;
+  const size_t smem = TileSmem(P, N, Q).bytes;
+  const int e = set_smem(ssd_bwd_tile_mma, smem);
+  if (e) return e;
+  const int tiles = (H / G + HT - 1) / HT;
+  ssd_bwd_tile_mma<<<dim3((S + Q - 1) / Q, Bb, G * tiles), kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A_log), static_cast<const bf16*>(Bm),
+      static_cast<const bf16*>(Cm), static_cast<const float*>(Dp),
+      static_cast<const bf16*>(dy), static_cast<const float*>(states),
+      static_cast<const float*>(dstates), static_cast<bf16*>(dx), static_cast<float*>(ddt),
+      static_cast<float*>(dB_part), static_cast<float*>(dC_part),
+      static_cast<double*>(dA_part), static_cast<double*>(dD_part), S, H, G, P, N, Q, HT);
+  return (int)cudaGetLastError();
+}
+
+// The earlier chunk kernel, one block per (chunk, b, head), with per-head
+// dB / dC partials (B, S, H, N): on no path of the port, timed beside
+// ssd_bwd_bf16.
+int ssd_bwd_bf16_per_head(const void* x, const void* dt, const void* A_log, const void* Bm,
+                          const void* Cm, const void* Dp, const void* dy, const void* states,
+                          const void* dstates, void* dx, void* ddt, void* dB_part,
+                          void* dC_part, void* dA_part, void* dD_part, int Bb, int S, int H,
+                          int G, int P, int N, int Q, void* stream) {
   if (!shapes_ok(S, H, G, P, N, Q)) return (int)cudaErrorInvalidValue;
   const size_t smem = BwdSmem(P, N, Q).bytes;
   const int e = set_smem(ssd_bwd_mma, smem);
@@ -1941,22 +2670,23 @@ int ssd_bwd_f32(const void* x, const void* dt, const void* A_log, const void* Bm
   return (int)cudaGetLastError();
 }
 
-// the fixed-order sums: dB, dC (bf16) over each group's heads; dA_log, dD
+// the fixed-order sums: dB, dC (bf16) over the per_group partials of each
+// group (tiles of heads, or heads); dA_log, dD
 int ssd_bwd_finish_bf16(const void* dB_part, const void* dC_part, const void* dA_part,
                         const void* dD_part, const void* A_log, void* dB, void* dC,
                         void* dA_log, void* dD, int Bb, int S, int H, int G, int N, int Q,
-                        void* stream) {
+                        int per_group, void* stream) {
   return launch_finish<bf16>(dB_part, dC_part, dA_part, dD_part, A_log, dB, dC, dA_log, dD,
-                             Bb, S, H, G, N, Q, stream);
+                             Bb, S, H, G, N, Q, per_group, stream);
 }
 
 // the same with f32 dB, dC
 int ssd_bwd_finish_f32(const void* dB_part, const void* dC_part, const void* dA_part,
                        const void* dD_part, const void* A_log, void* dB, void* dC,
                        void* dA_log, void* dD, int Bb, int S, int H, int G, int N, int Q,
-                       void* stream) {
+                       int per_group, void* stream) {
   return launch_finish<float>(dB_part, dC_part, dA_part, dD_part, A_log, dB, dC, dA_log, dD,
-                              Bb, S, H, G, N, Q, stream);
+                              Bb, S, H, G, N, Q, per_group, stream);
 }
 
 }  // extern "C"

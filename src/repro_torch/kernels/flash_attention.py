@@ -22,8 +22,8 @@ The backward (the port of ``flash_jnp._flash_bwd``, which
 ``kernels.ops.FlashAttention`` runs): with ``return_lse`` the forward also
 returns each row's log-sum-exp (B, Sq, H) f32, from which the backward
 recomputes the softmax block by block. :func:`flash_attention_bwd_cuda`
-launches ``csrc/flash_attention_bwd.cu``; :func:`flash_attention_bwd_plain`
-is its plain version. A row whose output the forward forces to 0
+launches ``csrc/flash_attention_bwd.cu`` (in bf16 on wgmma, its tiles brought
+by TMA); :func:`flash_attention_bwd_plain` is its plain version. A row whose output the forward forces to 0
 (``q_pos < 0``) or that has no valid key is dead: its log-sum-exp is
 NEG_INF and it has no gradient. The reference's backward differs on one
 case the models never reach: a row with ``q_pos < 0`` that has valid keys
@@ -51,7 +51,8 @@ _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 _BWD_SIG = (_P,) * 12 + (_I,) * 8 + (ctypes.c_float, _P)
 _BWD_SIGNATURES = {"flash_attention_bwd_f32": _BWD_SIG,
-                   "flash_attention_bwd_bf16": _BWD_SIG}
+                   "flash_attention_bwd_bf16": _BWD_SIG,
+                   "flash_attention_bwd_bf16_mma_sync": _BWD_SIG}
 _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}
 
@@ -222,15 +223,11 @@ def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                    return_lse)
 
 
-def flash_attention_bwd_cuda(q, k, v, out, lse, dout, q_pos, kv_pos, *,
-                             causal: bool = True, window: Optional[int] = None):
-    """Launch the backward kernels (Δ, dK/dV, dQ; one call) on the
-    forward's inputs, its output and log-sum-exp and the output gradient:
-    in bf16 on the tensor cores (``mma.sync``), in f32 on the CUDA cores.
-    → (dq, dk, dv) in the inputs' dtype; raises for inputs it does not
-    take."""
+def _launch_bwd(entry, q, k, v, out, lse, dout, q_pos, kv_pos, causal: bool,
+                window: Optional[int]):
+    """Check the backward's inputs and run the library's ``entry`` → (dq,
+    dk, dv)."""
     qp, kp = _check(q, k, v, q_pos, kv_pos, window)
-    entry = _BWD_ENTRY[q.dtype]
     B, Sq, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     for t in (out, dout):
@@ -240,7 +237,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, q_pos, kv_pos, *,
                              "of q's shape, dtype and device")
         if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError("flash_attention_bwd: bf16 out and dout must start "
-                             "16-byte aligned (read in 16-byte pieces)")
+                             "16-byte aligned (TMA reads dout)")
     if (lse.shape != (B, Sq, H) or lse.dtype != torch.float32
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("flash_attention_bwd: lse (B, Sq, H) f32 on q's device")
@@ -256,6 +253,27 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, q_pos, kv_pos, *,
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, entry)
     return dq, dk, dv
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, q_pos, kv_pos, *,
+                             causal: bool = True, window: Optional[int] = None):
+    """Launch the backward kernels (Δ, dK/dV, dQ; one call) on the
+    forward's inputs, its output and log-sum-exp and the output gradient:
+    in bf16 on the tensor cores (``wgmma``, tiles brought by TMA), in f32
+    on the CUDA cores. → (dq, dk, dv) in the inputs' dtype; raises for
+    inputs it does not take."""
+    return _launch_bwd(_BWD_ENTRY.get(q.dtype), q, k, v, out, lse, dout, q_pos, kv_pos,
+                       causal, window)
+
+
+def _flash_attention_bwd_mma_sync(q, k, v, out, lse, dout, q_pos, kv_pos, *,
+                                  causal: bool = True, window: Optional[int] = None):
+    """The earlier bf16 backward on ``mma.sync``: on no path of the port,
+    timed beside the wgmma kernels by ``chip_smoke.py``."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_attention_bwd: bf16 q/k/v required, got {q.dtype}")
+    return _launch_bwd("flash_attention_bwd_bf16_mma_sync", q, k, v, out, lse, dout,
+                       q_pos, kv_pos, causal, window)
 
 
 def _flash_attention_cuda_cores(q, k, v, q_pos, kv_pos, *, causal: bool = True,

@@ -24,7 +24,8 @@ cores. A ragged last chunk is masked in the kernels.
   ~1e-4 of absolute precision, and every decay factor inherits that as a
   relative error. The kernel does the same.
 :func:`ssd_scan_bwd_cuda` is the backward (the port of JAX's autodiff
-through ``ssd_chunked``), six launches (:func:`bwd_launches`), and
+through ``ssd_chunked``), six launches (:func:`bwd_launches`; in bf16 its
+chunk kernel takes a tile of heads a block, :func:`bwd_heads_per_tile`), and
 :func:`ssd_scan_bwd_plain` its plain version by the same formulas.
 :func:`ssd_decode_step` is the one-token recurrence, plain PyTorch as in the
 reference. ``kernels.ops`` picks the scan by the tensor's device and counts
@@ -55,11 +56,13 @@ _SIGNATURES = {
     "ssd_f32_dstates": (_P,) * 5 + (_I,) * 7 + (_P,),
     "ssd_bwd_pass": (_P,) * 4 + (_I,) * 6 + (_P,),
     "ssd_f64_walk": (_P,) * 4 + (_I,) * 7 + (_P,),
-    "ssd_bwd_bf16": (_P,) * 15 + (_I,) * 7 + (_P,),
+    "ssd_bwd_bf16": (_P,) * 15 + (_I,) * 8 + (_P,),
+    "ssd_bwd_bf16_per_head": (_P,) * 15 + (_I,) * 7 + (_P,),
     "ssd_bwd_f32": (_P,) * 15 + (_I,) * 7 + (_P,),
-    "ssd_bwd_finish_bf16": (_P,) * 9 + (_I,) * 6 + (_P,),
-    "ssd_bwd_finish_f32": (_P,) * 9 + (_I,) * 6 + (_P,),
+    "ssd_bwd_finish_bf16": (_P,) * 9 + (_I,) * 7 + (_P,),
+    "ssd_bwd_finish_f32": (_P,) * 9 + (_I,) * 7 + (_P,),
 }
+BWD_MAX_HEADS_PER_TILE = 8   # heads a block of the bf16 backward's chunk kernel takes at most
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -330,16 +333,44 @@ def bf16_launches(x, dt, A_log, B, C, D, init_state=None, *, chunk: int = 128):
     return (y, final), launches
 
 
+def bwd_heads_per_tile(Bb: int, S: int, H: int, G: int, chunk: int, sms: int) -> int:
+    """Heads per block (HT) of the bf16 backward's chunk kernel. Its grid is
+    (chunk, b, group x ceil((H / G) / HT) tiles), one block per SM, and a
+    block's time is about HT head steps plus one for the work it does once
+    (C·Bᵀ, the summed products). Of HT in 1 .. min(BWD_MAX_HEADS_PER_TILE,
+    H / G), the one with the fewest waves x (HT + 1) on ``sms`` SMs; ties
+    go to the larger HT (fewer partials for the finish pass). The last
+    tile of a group may be short."""
+    R = H // G
+    blocks = -(-S // chunk) * Bb * G
+    best, best_cost = 1, None
+    for ht in range(1, min(BWD_MAX_HEADS_PER_TILE, R) + 1):
+        waves = -(-blocks * bwd_partials_per_group(H, G, ht) // sms)
+        cost = waves * (ht + 1)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = ht, cost
+    return best
+
+
+def bwd_partials_per_group(H: int, G: int, heads_per_tile: int) -> int:
+    """The dB / dC partials a group has in the bf16 chunk kernel's scratch
+    (one per tile of heads; the last tile may be short)."""
+    return -(-(H // G) // heads_per_tile)
+
+
 def bwd_launches(x, dt, A_log, B, C, D, init_state, dy, dfinal=None, *,
-                 chunk: int = 128):
+                 chunk: int = 128, per_head: bool = False):
     """The backward as its kernel launches: → ((dx, ddt, dA_log, dB, dC,
     dD, d init_state or None), [(name, launch), ...]), run in order on the
     current stream by :func:`ssd_scan_bwd_cuda`. The forward's chunk
     states and pass are recomputed (S_in of every chunk); then the chunks'
     Σ exp(cum_i)·dy_i ⊗ C_i, the reverse pass over chunks, the chunk
-    kernel, and the fixed-order sums over heads and chunks
-    (``csrc/ssd_scan.cu``). bf16 runs on the tensor cores, f32 on the
-    CUDA cores in f64."""
+    kernel, and the fixed-order sums over partials and chunks
+    (``csrc/ssd_scan.cu``). bf16 runs on the tensor cores, its chunk kernel
+    one block per (chunk, b, group x tile of :func:`bwd_heads_per_tile`
+    heads) with a dB / dC partial per tile (``per_head``: the earlier
+    kernel, a block and a partial per head); f32 on the CUDA cores in f64,
+    a partial per head."""
     _validate(x, dt, A_log, B, C, D, init_state, chunk)
     Bb, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
@@ -357,6 +388,8 @@ def bwd_launches(x, dt, A_log, B, C, D, init_state, dy, dfinal=None, *,
                          f"{P}, {N}) float32")
     nc = -(-S // chunk)
     bf16 = x.dtype == torch.bfloat16
+    if per_head and not bf16:
+        raise ValueError("ssd_scan_bwd: the per-head chunk kernel takes bf16 x")
     f32 = dict(dtype=torch.float32, device=x.device)
     # the f32 instance keeps the chunk states in f64 (csrc/ssd_scan.cu: at
     # mamba2's decays ddt takes their f32 rounding to ~1e-3)
@@ -366,7 +399,12 @@ def bwd_launches(x, dt, A_log, B, C, D, init_state, dy, dfinal=None, *,
     decay = torch.empty((Bb, nc, H), **st)
     parts = [torch.empty((Bb, nc, H), dtype=torch.float64, device=x.device)
              for _ in range(2)]                                          # dA, dD
-    heads = [torch.empty((Bb, S, H, N), **f32) for _ in range(2)]      # dB, dC
+    tiled = bf16 and not per_head
+    ht = (bwd_heads_per_tile(Bb, S, H, G, chunk, torch.cuda.get_device_properties(
+        x.device).multi_processor_count) if tiled else 1)
+    per_group = bwd_partials_per_group(H, G, ht)
+    heads = [torch.empty((Bb, S, G * per_group, N), **f32)
+             for _ in range(2)]                                          # dB, dC
     dx = torch.empty_like(x)
     ddt = torch.empty((Bb, S, H), **f32)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
@@ -393,6 +431,8 @@ def bwd_launches(x, dt, A_log, B, C, D, init_state, dy, dfinal=None, *,
                         N, chunk, 0),
                  launch("ssd_f64_walk", dstates, decay, dfinal, d_init, Bb, S, H, P, N,
                         chunk, 1))
+    chunk_args = (x, dt, A_log, B, C, D, dy, states, dstates, dx, ddt, heads[0], heads[1],
+                  parts[0], parts[1], Bb, S, H, G, P, N, chunk)
     launches = [
         launch(f"ssd_{kind}_states", x, dt, A_log, B, states, decay, Bb, S, H, G, P,
                N, chunk),
@@ -400,10 +440,10 @@ def bwd_launches(x, dt, A_log, B, C, D, init_state, dy, dfinal=None, *,
         launch(f"ssd_{kind}_dstates", dy, dt, A_log, C, dstates, Bb, S, H, G, P, N,
                chunk),
         walks[1],
-        launch(f"ssd_bwd_{kind}", x, dt, A_log, B, C, D, dy, states, dstates, dx,
-               ddt, heads[0], heads[1], parts[0], parts[1], Bb, S, H, G, P, N, chunk),
+        (launch("ssd_bwd_bf16", *chunk_args, ht) if tiled
+         else launch(f"ssd_bwd_{kind}" + ("_per_head" if per_head else ""), *chunk_args)),
         launch(f"ssd_bwd_finish_{kind}", heads[0], heads[1], parts[0], parts[1],
-               A_log, dB, dC, dA_log, dD, Bb, S, H, G, N, chunk),
+               A_log, dB, dC, dA_log, dD, Bb, S, H, G, N, chunk, per_group),
     ]
     return (dx, ddt, dA_log, dB, dC, dD, d_init), launches
 
@@ -415,6 +455,20 @@ def ssd_scan_bwd_cuda(x, dt, A_log, B, C, D, init_state, dy, dfinal=None, *,
     or None), as :func:`ssd_scan_bwd_plain`."""
     grads, launches = bwd_launches(x, dt, A_log, B, C, D, init_state, dy, dfinal,
                                    chunk=chunk)
+    for _, run in launches:
+        run()
+    return grads
+
+
+def _ssd_scan_bwd_per_head(x, dt, A_log, B, C, D, init_state, dy, dfinal=None, *,
+                           chunk: int = 128):
+    """The earlier bf16 backward (its chunk kernel one block and one dB / dC
+    partial per head): on no path of the port, timed beside
+    :func:`ssd_scan_bwd_cuda` by ``chip_smoke.py``."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"ssd_scan_bwd: bf16 x required, got {x.dtype}")
+    grads, launches = bwd_launches(x, dt, A_log, B, C, D, init_state, dy, dfinal,
+                                   chunk=chunk, per_head=True)
     for _, run in launches:
         run()
     return grads

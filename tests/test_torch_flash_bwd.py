@@ -185,3 +185,129 @@ def test_cpu_ssd_and_decode_still_differentiate():
                              torch.from_numpy(qp), torch.from_numpy(kp))
     (gq,) = torch.autograd.grad(o.sum(), (qt,))
     assert torch.isfinite(gq).all() and gq.abs().max() > 0
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels' rounding points, as a design model; wrapper refusals; the
+# build hash over the shared header
+# ---------------------------------------------------------------------------
+
+def _bf(t):
+    """t rounded to bf16, as f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _wgmma_bwd_model(q, k, v, out, lse, dout, qp, kp, causal, window):
+    """dq, dk, dv as ``flash_bwd_dkdv_wgmma`` / ``flash_bwd_dq_wgmma`` form
+    them, dense: bf16 operands; S, dP and P (masked before exp, dead rows
+    P = 0) in f32; dS = P ∘ (dP − Δ) in f32, Δ from the bf16 output; P and
+    dS rounded to bf16 as the A operands of dV += Pᵀ·dO, dK += dSᵀ·Q and dQ
+    += dS·K, whose sums are f32; dk and dq scaled once; the results rounded
+    to bf16."""
+    B, Sq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    scale = Dh ** -0.5
+    kk = k.repeat_interleave(g, dim=2)
+    vv = v.repeat_interleave(g, dim=2)
+    ok = fa._valid(qp, kp, causal, window)[:, 0]                  # (B, 1, q, k)
+    live = ((lse > NEG_INF / 2) & (qp >= 0)[:, :, None]).permute(0, 2, 1)[..., None]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) * scale
+    p = torch.where(ok & live, torch.exp(s - lse.permute(0, 2, 1)[..., None]),
+                    torch.zeros(()))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout, vv)
+    delta = (out * dout).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", _bf(ds), kk) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", _bf(ds), q).reshape(
+        B, -1, Hkv, g, Dh).sum(3) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf(p), dout).reshape(B, -1, Hkv, g, Dh).sum(3)
+    return _bf(dq), _bf(dk), _bf(dv)
+
+
+MODEL_CASES = [
+    # B, Sq, Skv, H, Hkv, Dh, causal, window, tail (kv_pos -1), pad (q_pos -2)
+    (1, 72, 72, 4, 4, 64, True, None, 0, 0),     # g 1
+    (1, 70, 90, 8, 2, 64, True, None, 3, 2),     # g 4, ragged
+    (2, 65, 65, 5, 1, 64, True, 24, 0, 0),       # g 5, window
+    (1, 72, 72, 2, 2, 80, True, None, 0, 3),     # Dh 80
+    (1, 40, 100, 8, 2, 80, False, None, 5, 0),   # Dh 80, g 4, non-causal
+    (1, 66, 66, 5, 1, 80, True, None, 0, 0),     # zamba2's Dh 80, g 5
+    (1, 64, 64, 2, 2, 128, True, None, 2, 0),    # Dh 128
+    (1, 50, 80, 4, 1, 128, True, 30, 0, 1),      # Dh 128, g 4
+    (1, 33, 33, 5, 1, 128, True, None, 0, 0),    # Dh 128, g 5
+]
+
+
+@pytest.mark.parametrize("case", MODEL_CASES)
+def test_wgmma_rounding_model_within_the_bf16_tolerance(case):
+    """The bf16 kernels' rounding points against ``flash_attention_bwd_plain``
+    in f32 on the same bf16-valued inputs, forward output and log-sum-exp,
+    |got − want| <= 2e-2·(1 + |want|) as the card's check holds the kernel
+    (Dh 64, 80 and 128; g 1, 4 and 5); q_pos < 0 rows get dq 0 and kv_pos
+    < 0 keys dk = dv = 0 exactly."""
+    B, Sq, Skv, H, Hkv, Dh, causal, win, tail, pad = case
+    q, k, v, qp, kp = _inputs((B, Sq, Skv, H, Hkv, Dh, causal, win, 8, 8, tail, pad),
+                              seed=11)
+    q, k, v = (_bf(torch.from_numpy(a)) for a in (q, k, v))
+    qp, kp = torch.from_numpy(qp), torch.from_numpy(kp)
+    out, lse = fa.flash_attention_plain(q, k, v, qp, kp, causal=causal, window=win,
+                                        return_lse=True)
+    out = _bf(out)
+    rng = np.random.default_rng(12)
+    dout = _bf(torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32)))
+    args = (q, k, v, out, lse, dout, qp, kp)
+    got = _wgmma_bwd_model(*args, causal, win)
+    want = fa.flash_attention_bwd_plain(*args, causal=causal, window=win)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        excess = ((g_ - w_).abs() - 2e-2 * (1 + w_.abs())).max().item()
+        assert excess <= 0, (name, excess)
+    if pad:
+        assert got[0][:, -pad:].abs().max().item() == 0.0
+    if tail:
+        assert got[1][:, -tail:].abs().max().item() == 0.0
+        assert got[2][:, -tail:].abs().max().item() == 0.0
+
+
+def test_bwd_wrappers_refuse_cpu_and_f32_for_the_earlier_design():
+    """The CUDA backward never falls back to the plain version; the earlier
+    mma.sync design takes bf16 only."""
+    q, k, v, qp, kp = map(torch.from_numpy, _inputs(CASES[0]))
+    out, lse = fa.flash_attention_plain(q, k, v, qp, kp, return_lse=True)
+    args = (q, k, v, out, lse, out.clone(), qp, kp)
+    with pytest.raises(ValueError, match="CUDA tensors required"):
+        fa.flash_attention_bwd_cuda(*args)
+    with pytest.raises(ValueError, match="bf16 q/k/v required"):
+        fa._flash_attention_bwd_mma_sync(*args)
+    bf = [t.to(torch.bfloat16) if t.is_floating_point() and t is not lse else t
+          for t in args]
+    with pytest.raises(ValueError, match="CUDA tensors required"):
+        fa._flash_attention_bwd_mma_sync(*bf)
+
+
+def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """A kernel library's name hashes its source, every header under
+    ``csrc/`` and the flags: editing the shared header (hopper.cuh) names
+    new libraries, so a stale build is never loaded."""
+    from repro_torch.kernels import _build
+    (tmp_path / "a.cu").write_text('#include "hopper.cuh"\n')
+    (tmp_path / "hopper.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("a")
+    assert first == _build.library_path("a")
+    (tmp_path / "hopper.cuh").write_text("// two\n")
+    second = _build.library_path("a")
+    (tmp_path / "a.cu").write_text('#include "hopper.cuh"\n// edited\n')
+    third = _build.library_path("a")
+    assert len({first, second, third}) == 3
+    assert all(p.parent == _build.BUILD_DIR and p.name.startswith("liba-")
+               for p in (first, second, third))
+
+
+def test_the_port_ships_its_shared_header():
+    """Both flash sources and the SSD scan include the shared header, which
+    the build hashes."""
+    from repro_torch.kernels import _build
+    assert (_build.CSRC / "hopper.cuh").is_file()
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan"):
+        assert '#include "hopper.cuh"' in (_build.CSRC / f"{name}.cu").read_text()

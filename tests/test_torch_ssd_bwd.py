@@ -183,3 +183,198 @@ def test_bwd_wrapper_refuses_cpu_tensors():
         pss.ssd_scan_bwd_cuda(*map(_t, arrs), chunk=CASES[0][6])
     with pytest.raises(ValueError, match="CUDA tensors required"):
         pss.bwd_launches(*map(_t, arrs), chunk=CASES[0][6])
+
+
+# ---------------------------------------------------------------------------
+# The bf16 chunk kernel by tiles of heads: its arithmetic as a design model,
+# and its launch plan
+# ---------------------------------------------------------------------------
+
+def _bf(t):
+    """t rounded to bf16, as f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _hilo(t):
+    """An f32 operand as the kernel feeds it to the tensor cores: a bf16 hi
+    + lo pair (about 16 bits of mantissa)."""
+    hi = _bf(t)
+    return hi + _bf(t - hi)
+
+
+def _tile_model(x, dt, A_log, B, C, dy, init, dfinal, chunk, ht):
+    """dB and dC as ``ssd_bwd_tile_mma`` forms them, in plain torch: x, B,
+    C, dy bf16-valued; per chunk and group, the heads in tiles of ``ht`` (the
+    last one short); per tile Σ_h M^h (M^h_ij = e_ij·dt_j·(dy_i·x_j), masked
+    to i ≥ j, f32, in head order) rounded to hi + lo once, then ·C (dB) and
+    ·B (dC); the carry w_j·x_jᵀ·dS and inter exp(cum_i)·dy_i·S_in per head
+    with dS and S_in as hi + lo; f32 sums; the tiles' partials summed in
+    order (the finish pass). S_in and dS come from the f64 walks of
+    ``ssd_scan_bwd_plain``, rounded to f32 as the kernels keep them."""
+    Bb, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    R = H // G
+    Q = min(chunk, S)
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+    xb = pss._pad_seq(x, pad).reshape(Bb, nc, Q, G, R, P)
+    dyb = pss._pad_seq(dy, pad).reshape(Bb, nc, Q, G, R, P)
+    dtb = pss._pad_seq(dt, pad).reshape(Bb, nc, Q, G, R)
+    Bc = pss._pad_seq(B, pad).reshape(Bb, nc, Q, G, N)
+    Cc = pss._pad_seq(C, pad).reshape(Bb, nc, Q, G, N)
+    A = -torch.exp(A_log).reshape(G, R)
+    cum = torch.cumsum((dtb * A).double(), dim=2)
+    seg = cum[:, :, -1:]
+    tri = torch.ones((Q, Q), dtype=torch.bool).tril()
+    diff = (cum[:, :, :, None] - cum[:, :, None]).float()          # [i, j]
+    dec = torch.exp(torch.where(tri[None, None, :, :, None, None], diff,
+                                torch.tensor(float("-inf"))))
+    w = (torch.exp(seg - cum) * dtb).float()                       # (B,nc,Q,G,R)
+    e_cum = torch.exp(cum).float()
+    # the chunk states S_in and the gradients dS of the states leaving chunks
+    s_c = torch.einsum("bcjgrp,bcjgn->bcgrpn", (torch.exp(seg - cum) * dtb)[..., None]
+                       * xb.double(), Bc.double())
+    ds_c = torch.einsum("bcigrp,bcign->bcgrpn", torch.exp(cum)[..., None] * dyb.double(),
+                        Cc.double())
+    decay = torch.exp(seg[:, :, 0])
+    state = (torch.zeros((Bb, G, R, P, N), dtype=torch.float64) if init is None
+             else init.double().reshape(Bb, G, R, P, N))
+    back = (torch.zeros((Bb, G, R, P, N), dtype=torch.float64) if dfinal is None
+            else dfinal.double().reshape(Bb, G, R, P, N))
+    s_in, ds_out = [None] * nc, [None] * nc
+    for c in range(nc):
+        s_in[c] = state
+        state = decay[:, c, :, :, None, None] * state + s_c[:, c]
+    for c in reversed(range(nc)):
+        ds_out[c] = back
+        back = decay[:, c, :, :, None, None] * back + ds_c[:, c]
+    s_in, ds_out = torch.stack(s_in, 1).float(), torch.stack(ds_out, 1).float()
+
+    dyx = torch.einsum("bcigrp,bcjgrp->bcijgr", dyb, xb)
+    M = dec * dtb[:, :, None] * dyx                                # (B,nc,Q,Q,G,R)
+    dB = torch.zeros((Bb, nc, Q, G, N))
+    dC = torch.zeros((Bb, nc, Q, G, N))
+    for t0 in range(0, R, ht):
+        heads = range(t0, min(R, t0 + ht))
+        msum = torch.zeros((Bb, nc, Q, Q, G))
+        for r in heads:
+            msum = msum + M[..., r]
+        part_b = torch.zeros((Bb, nc, Q, G, N))
+        part_c = torch.zeros((Bb, nc, Q, G, N))
+        for r in heads:
+            part_b = part_b + w[..., r, None] * torch.einsum(
+                "bcjgp,bcgpn->bcjgn", xb[..., r, :], _hilo(ds_out[:, :, :, r]))
+            part_c = part_c + e_cum[..., r, None] * torch.einsum(
+                "bcigp,bcgpn->bcign", dyb[..., r, :], _hilo(s_in[:, :, :, r]))
+        mh = _hilo(msum)
+        part_b = part_b + torch.einsum("bcijg,bcign->bcjgn", mh, Cc)
+        part_c = part_c + torch.einsum("bcijg,bcjgn->bcign", mh, Bc)
+        dB, dC = dB + part_b, dC + part_c
+    return (dB.reshape(Bb, nc * Q, G, N)[:, :S], dC.reshape(Bb, nc * Q, G, N)[:, :S])
+
+
+TILE_CASES = [
+    # B, S, H, P, G, N, chunk, init_state, d final state; heads per tile
+    ((1, 48, 8, 8, 1, 16, 16, False, False), 8),    # G 1, one tile of 8 heads
+    ((2, 40, 8, 8, 2, 8, 16, True, True), 4),       # G > 1, a tile per group
+    ((1, 40, 12, 8, 1, 8, 16, False, True), 8),     # H/G 12: tiles of 8 and 4
+    ((1, 33, 12, 4, 3, 8, 8, True, False), 3),      # G 3, ragged S
+    ((1, 64, 10, 8, 2, 16, 32, False, False), 2),   # H/G 5: tiles of 2, 2 and 1
+]
+
+
+def _bf16_inputs(case, seed, decay):
+    """The inputs as the bf16 kernel sees them: x, B, C, dy bf16-valued."""
+    x, dt, A_log, Bm, Cm, D, s0, dy, df = _inputs(case, seed=seed, decay=decay)
+    x, Bm, Cm, dy = (_bf(torch.from_numpy(a)).numpy() for a in (x, Bm, Cm, dy))
+    return x, dt, A_log, Bm, Cm, D, s0, dy, df
+
+
+@pytest.mark.parametrize("case,ht", TILE_CASES)
+def test_tile_model_matches_the_plain_backward(case, ht):
+    """The head-tile arithmetic (Σ M over a tile, rounded to hi + lo once,
+    then ·C and ·B; dS and S_in as hi + lo) against ``ssd_scan_bwd_plain``
+    on the same bf16-valued inputs at mamba2's decays, for dB and dC: 2e-2 of
+    each leaf's largest gradient, the kernels' bf16 tolerance."""
+    arrs = _bf16_inputs(case, seed=6, decay="mamba2")
+    x, dt, A_log, Bm, Cm, D, s0, dy, df = map(_t, arrs)
+    dB, dC = _tile_model(x, dt, A_log, Bm, Cm, dy, s0, df, case[6], ht)
+    want = _plain(arrs, case[6])
+    _close([dB, dC], [want[3].numpy(), want[4].numpy()], 2e-2, names=("dB", "dC"))
+
+
+@pytest.mark.parametrize("case,ht", TILE_CASES)
+def test_tile_model_matches_jax_grad_of_the_sequential_oracle(case, ht):
+    """The same model against ``jax.grad`` of the reference's sequential
+    ``ssd_ref`` at mamba2's decays (A_log = log(1..H)), 2e-2 of each leaf's
+    largest gradient."""
+    arrs = _bf16_inputs(case, seed=7, decay="mamba2")
+    x, dt, A_log, Bm, Cm, D, s0, dy, df = map(_t, arrs)
+    dB, dC = _tile_model(x, dt, A_log, Bm, Cm, dy, s0, df, case[6], ht)
+    want = _jax_grads(lambda *a: jssd_ref(*a), arrs)
+    _close([dB, dC], [want[3], want[4]], 2e-2, names=("dB", "dC"))
+
+
+def test_tile_model_with_one_head_a_tile_is_the_per_head_sum():
+    """With one head a tile, Σ M is each head's M: the model's dB and dC
+    then sum per-head partials, as the earlier kernel and its finish pass
+    did; tiles of 8 agree with it to 2e-2 of the largest gradient."""
+    case = TILE_CASES[2][0]
+    arrs = _bf16_inputs(case, seed=8, decay="mamba2")
+    x, dt, A_log, Bm, Cm, D, s0, dy, df = map(_t, arrs)
+    one = _tile_model(x, dt, A_log, Bm, Cm, dy, s0, df, case[6], 1)
+    eight = _tile_model(x, dt, A_log, Bm, Cm, dy, s0, df, case[6], 8)
+    _close(list(eight), [t.numpy() for t in one], 2e-2, names=("dB", "dC"))
+
+
+@pytest.mark.parametrize("Bb,S,H,G,chunk,sms,want", [
+    (2, 2048, 64, 1, 128, 132, 8),     # mamba2-1.3b's microbatch: 256 blocks, two waves
+    (4, 2048, 64, 1, 128, 132, 8),
+    (1, 2048, 80, 1, 128, 132, 5),     # zamba2-2.7b's 80 heads: 256 blocks of 5
+    (1, 200, 12, 1, 32, 132, 1),       # 7 chunks: one head a block fills more SMs
+    (2, 1000, 16, 4, 128, 132, 2),
+    (1, 64, 8, 8, 64, 132, 1),         # one head a group
+    (2, 400, 24, 1, 32, 132, 5),       # tiles of 5, 5, 5, 5 and 4
+    (1, 2048, 12, 4, 128, 132, 2),     # groups of 3 heads: tiles of 2 and 1
+])
+def test_bwd_heads_per_tile(Bb, S, H, G, chunk, sms, want):
+    """The chunk kernel's heads per block: the fewest waves x (HT + 1) of
+    one-block-per-SM blocks, ties to the larger HT, HT <= min(8, H / G);
+    some shapes leave a group's last tile short (24 heads in tiles of 5)."""
+    ht = pss.bwd_heads_per_tile(Bb, S, H, G, chunk, sms)
+    assert ht == want
+    R = H // G
+    assert 1 <= ht <= min(pss.BWD_MAX_HEADS_PER_TILE, R)
+    blocks = -(-S // chunk) * Bb * G
+
+    def cost(t):
+        return -(-blocks * pss.bwd_partials_per_group(H, G, t) // sms) * (t + 1)
+
+    assert all(cost(ht) < cost(t) or (cost(ht) == cost(t) and ht >= t)
+               for t in range(1, min(8, R) + 1))
+
+
+@pytest.mark.parametrize("H,G,ht,want", [(64, 1, 8, 8), (80, 1, 5, 16), (12, 1, 8, 2),
+                                         (16, 4, 4, 1), (10, 2, 2, 3), (8, 1, 1, 8)])
+def test_bwd_partials_per_group(H, G, ht, want):
+    """dB / dC partials a group has: one per tile of heads, the last tile
+    short; the scratch is (B, S, G x that, N), H / HT times smaller than a
+    partial per head when HT divides H / G."""
+    assert pss.bwd_partials_per_group(H, G, ht) == want
+    assert want * ht >= H // G > (want - 1) * ht
+
+
+def test_per_head_backward_refuses_f32_and_cpu():
+    """The earlier per-head kernel exists in bf16 only, on the card only;
+    neither falls back to the plain version."""
+    arrs = _inputs(CASES[0])
+    with pytest.raises(ValueError, match="bf16 x required"):
+        pss._ssd_scan_bwd_per_head(*map(_t, arrs), chunk=CASES[0][6])
+    x, dt, A_log, Bm, Cm, D, s0, dy, df = map(_t, arrs)
+    bf = [t.to(torch.bfloat16) for t in (x, Bm, Cm, dy)]
+    with pytest.raises(ValueError, match="CUDA tensors required"):
+        pss._ssd_scan_bwd_per_head(bf[0], dt, A_log, bf[1], bf[2], D, s0, bf[3], df,
+                                   chunk=CASES[0][6])
+    with pytest.raises(ValueError, match="CUDA tensors required"):
+        pss.bwd_launches(bf[0], dt, A_log, bf[1], bf[2], D, s0, bf[3], df,
+                         chunk=CASES[0][6], per_head=True)
