@@ -30,37 +30,54 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              ``framing.mac_batch`` bit for bit.
 3. prefill — ``runtime.steps.make_prefill_step`` at full width and depth
              (bf16, random weights from a seeded generator), 4 prompts of
-             2048 tokens, for llama3.2-1b, mamba2-1.3b and zamba2-2.7b: ms
-             per prefill, prompt tokens/s, peak memory, finite logits; the
-             launch counts are zeroed just before and read just after (per
-             call: 16 flash-attention launches for llama, 48 SSD-scan
-             launches for mamba2, 54 SSD and 9 flash for zamba2).
+             2048 tokens, for llama3.2-1b, mamba2-1.3b, zamba2-2.7b,
+             olmo-1b, smollm-360m and qwen3-14b (40 layers, 29.5 GB), and
+             2 prompts of 6144 tokens for mixtral-8x7b cut to 16 of its 32
+             layers (46.4 GB; all 32 would not fit the card), so that the
+             window of 4096 binds: ms per prefill, prompt tokens/s, peak
+             memory, finite logits, mixtral's share of dropped (token,
+             choice) pairs at its capacity factor of 1.25; the launch counts
+             are zeroed just before and read just after and must equal one
+             flash-attention launch per attention block and one SSD-scan
+             launch per mamba block a call (llama 16, mamba2 48 SSD, zamba2
+             54 SSD and 9 flash, olmo 16, smollm 32, qwen3 40, mixtral 16).
+             Then smollm-360m in the JAX package's padded 32/8 head layout
+             (its weights embedded with zero pad rows) against the unpadded
+             model in f32 at full depth: identical argmax, max abs
+             difference printed.
 4. serve   — llama3.2-1b at full width and depth (bf16), max_batch 8,
              max_seq 1024: 12 concurrent lockstep clients and one batch
-             envelope of 8; then mamba2-1.3b and zamba2-2.7b the same way
-             with 8 clients. Every request and response is a sealed frame
-             through the service step; a tampered frame must be refused.
-             The launch counts are zeroed just before and read just after;
-             each kernel of the path must be > 0.
-5. train   — the port's ``Trainer`` at full width and depth for the three:
-             f32 parameters and AdamW moments, bf16 compute, 8 x 2048
-             tokens a step in microbatches of 2 (zamba2: 1, the largest
-             that fits), 6 steps at lr 3e-4 (2 warmup) on the synthetic
-             stream: every loss, ms per step and tokens/s after the first
-             step, peak memory; the loss must fall and each attention and
-             mamba block of each microbatch must launch its kernel's
-             forward and backward once (llama 384 flash; mamba2 1152 SSD;
-             zamba2 2592 SSD and 432 flash). Then one 1 x 512 microbatch
-             for llama and mamba2: loss and gradients through the kernels
-             in bf16 against the plain versions in f32 (loss to 2e-2
-             relative, every gradient leaf at cosine >= 0.99).
+             envelope of 8; then mamba2-1.3b, zamba2-2.7b, olmo-1b,
+             smollm-360m, qwen3-14b and mixtral-8x7b (16 layers; max_seq
+             1024 is inside its window, a dense cache) the same way with 8
+             clients. Every request and response is a sealed frame through
+             the service step; a tampered frame must be refused. The launch
+             counts are zeroed just before and read just after; each kernel
+             of the path must be > 0, and decode attention must launch once
+             per attention block a tick.
+5. train   — the port's ``Trainer`` at full width and depth for llama,
+             mamba2, zamba2, olmo-1b and smollm-360m: f32 parameters and
+             AdamW moments, bf16 compute, 8 x 2048 tokens a step in
+             microbatches of 2 (zamba2: 1, the largest that fits), 6 steps
+             at lr 3e-4 (2 warmup) on the synthetic stream: every loss, ms
+             per step and tokens/s after the first step, peak memory; the
+             loss must fall and each attention and mamba block of each
+             microbatch must launch its kernel's forward and backward once
+             (llama 384 flash; mamba2 1152 SSD; zamba2 2592 SSD and 432
+             flash; olmo 384 flash; smollm 768 flash). Then one 1 x 512
+             microbatch for llama, mamba2 and olmo-1b: loss and gradients
+             through the kernels in bf16 against the plain versions in f32
+             (loss to 2e-2 relative, every gradient leaf at cosine >= 0.99).
 6. parity  — in f32 at full width: the llama engine with the decode-attention
              kernel and with its plain version give identical greedy tokens;
              the reduced engine on the card equals it on the CPU; and for
-             the three families the forward with the kernels equals the
-             forward with the plain versions, and the last prefill logits
-             equal ``decode_step`` run token by token over the same prompt
-             (identical argmax, max abs difference printed).
+             the three families at full depth, and olmo-1b, smollm-360m,
+             qwen3-14b and mixtral-8x7b at 2 layers, the forward with the
+             kernels equals the forward with the plain versions (mixtral's
+             over 4224 tokens, past its window), and the last prefill
+             logits equal ``decode_step`` run token by token over the same
+             prompt (identical argmax, max abs difference printed; mixtral
+             at a capacity factor of E / k, where neither path drops).
 
 Then a ``kernels`` JSON line (times from CUDA events, bounds from this
 run's inputs, launches summed over the prefill, serve and train phases;
@@ -70,15 +87,20 @@ replaced timed in this run, and the two backwards the design each replaced
 ``earlier_pass_ms``); the four add ``kernels_per_call``, the kernel
 nodes of a CUDA graph that captures the call (1, 3, 3 and 6), ``pass_ms`` (the flash backward's
 from the profiler's device times), ``at_dh80`` for both flash rows
-(zamba2-2.7b's attention) and ``tensor_core_instr``, the HGMMA/HMMA
+(zamba2-2.7b's attention), ``at_qwen3`` and ``at_mixtral`` for the forward
+(4 x 2048, 40/8 heads of 128; 2 x 6144, 32/8 heads with the window of
+4096), ``at_olmo`` for the backward (2 x 2048, 16 heads of 128, MHA), and
+``tensor_core_instr``, the HGMMA/HMMA
 instructions in the SASS of their bf16 kernels (the flash backward's must
 be HGMMA); the SSD backward's row adds its ``heads_per_tile``; the decode-attention, guard_copy, mac_batch and mac_update
 rows add ``earlier_ms`` and ``earlier_graph_ms``, the two-launch designs
 they replaced, ``graph_ms``, ms per call under CUDA-graph replay (outputs
 checked against the eager calls bit for bit), and ``kernels_per_call``
 counted the same way (must be 1); decode attention adds
-``at_full_cache``, 16 layer caches of (8, 1024, 8, 64) called in turn, and
-``at_long_cache``, one (8, 16384, 8, 64) cache, both cold in L2;
+``at_full_cache``, 16 layer caches of (8, 1024, 8, 64) called in turn,
+``at_qwen3_cache``, qwen3-14b's 40 layer caches of (8, 1024, 8, 128) with
+40 query heads, and ``at_long_cache``, one (8, 16384, 8, 64) cache, all
+cold in L2;
 guard_copy adds ``at_64MiB``; mac_update ``at_65536_rows`` and mac_batch
 ``at_32MiB``, 4 distinct 32 MiB inputs called in turn, cold in L2, eager
 and under graph replay), the
@@ -104,6 +126,11 @@ SRC = "src/repro_torch/kernels/csrc"
 # zamba2-2.7b's training microbatch: the largest that fits the card's 80 GB
 # beside f32 parameters, gradients and AdamW moments (~38.7 GB); see PERF.md
 ZAMBA_MICRO = 1
+# mixtral-8x7b's depth on one card: 16 of its 32 layers are 46.4 GB of bf16
+# weights (all 32: 93 GB, more than the card's 80)
+MIXTRAL_LAYERS = 16
+# the JAX package's padded head layout for smollm-360m (launch/dryrun.py)
+SMOLLM_PADS = dict(pad_q_heads=32, pad_kv_heads=8)
 
 
 def emit(**rec):
@@ -851,21 +878,22 @@ GUARD_KERNELS = ("guard_copy", "mac_batch", "mac_init_state", "mac_update",
 
 def layer_kernels(cfg):
     """{kernel: launches per forward} of a model's layer stack: flash
-    attention once per attention block (every layer of a dense model, each
-    insertion of a hybrid's shared block), the SSD scan once per mamba
-    block."""
-    n_attn = {"dense": cfg.num_layers, "ssm": 0,
+    attention once per attention block (every layer of a dense or MoE
+    model, each insertion of a hybrid's shared block), the SSD scan once
+    per mamba block."""
+    n_attn = {"dense": cfg.num_layers, "moe": cfg.num_layers, "ssm": 0,
               "hybrid": cfg.num_layers // max(1, cfg.attn_every)}[cfg.family]
-    n_ssd = 0 if cfg.family == "dense" else cfg.num_layers
+    n_ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
     return {k: n for k, n in (("flash_attention", n_attn), ("ssd_scan", n_ssd)) if n}
 
 
 def phase_prefill(cfg, n_calls=3, B=4, S=2048):
     """``make_prefill_step`` at full width and depth in bf16 over B prompts
     of S tokens; each kernel of ``layer_kernels`` must launch its count
-    per call."""
+    per call. For an MoE model, one more forward after the count reads
+    the share of (token, choice) pairs its layers dropped."""
     from repro_torch.kernels import ops
-    from repro_torch.models import Impl, init_params
+    from repro_torch.models import Impl, forward, init_params
     from repro_torch.models.layers import padded_vocab
     from repro_torch.runtime.steps import make_prefill_step
 
@@ -893,27 +921,96 @@ def phase_prefill(cfg, n_calls=3, B=4, S=2048):
           and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
           f"{cfg.name} prefill: logits {tuple(logits.shape)} not finite")
     ms = wall / n_calls * 1e3
+    extra = {}
+    if cfg.moe:
+        with torch.no_grad():
+            _, aux = forward(cfg, params, batch, dtype=torch.bfloat16, last_only=True)
+        extra = dict(capacity_factor=cfg.moe.capacity_factor,
+                     moe_drop_frac=aux["moe_drop_frac"].item() / cfg.num_layers)
     emit(phase="prefill", arch=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, dtype="bfloat16", batch=B, prompt_len=S,
-         calls=n_calls, ms_per_prefill=ms, prompt_tokens_per_s=B * S / ms * 1e3,
+         window=cfg.swa_window, calls=n_calls, ms_per_prefill=ms,
+         prompt_tokens_per_s=B * S / ms * 1e3,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=launches, logits_finite=True)
+         launches=launches, logits_finite=True, **extra)
     del params, batch, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pad_heads(cfg, cfg_pad, attn):
+    """A stacked attention's real heads placed into the zeroed padded
+    (kv_pad, g_pad) layout of ``cfg_pad`` (as the JAX package's head
+    padding test embeds them): pad rows of wq, wk, wv and wo are 0."""
+    H, Hkv, Dh, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    Hp, Hkvp = cfg_pad.q_heads_eff, cfg_pad.kv_heads_eff
+    g, gp = H // Hkv, Hp // Hkvp
+    L = attn["wq"].shape[0]
+
+    def zeros(*shape):
+        return attn["wq"].new_zeros(shape)
+    wq, wo = zeros(L, D, Hkvp, gp, Dh), zeros(L, Hkvp, gp, Dh, D)
+    wk, wv = zeros(L, D, Hkvp, Dh), zeros(L, D, Hkvp, Dh)
+    wq[:, :, :Hkv, :g] = attn["wq"].reshape(L, D, Hkv, g, Dh)
+    wo[:, :Hkv, :g] = attn["wo"].reshape(L, Hkv, g, Dh, D)
+    wk[:, :, :Hkv] = attn["wk"]
+    wv[:, :, :Hkv] = attn["wv"]
+    return {**attn, "wq": wq.reshape(L, D, Hp, Dh), "wk": wk, "wv": wv,
+            "wo": wo.reshape(L, Hp, Dh, D)}
+
+
+def phase_padded(cfg, pads, B=4, S=2048):
+    """The model in a padded head layout (``pads``, with its weights
+    embedded by ``pad_heads``) against the unpadded one: the last prefill
+    logits of B prompts of S tokens in f32 at full width and depth, with
+    the kernels (pad kv heads hold k = v = 0 and pad q heads zero rows of
+    wo: their output must vanish, not turn NaN). Identical argmax, max abs
+    difference printed (at most 1e-3). → the launch counts."""
+    from repro_torch.configs import replace
+    from repro_torch.kernels import ops
+    from repro_torch.models import Impl, init_params
+    from repro_torch.runtime.steps import make_prefill_step
+
+    cfg_pad = replace(cfg, **pads)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
+    padded = dict(params, blocks=dict(params["blocks"], attn=pad_heads(
+        cfg, cfg_pad, params["blocks"]["attn"])))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device="cuda")}
+    V = cfg.vocab_size
+    ops.LAUNCHES.reset()
+    want = make_prefill_step(cfg, Impl(), dtype=torch.float32)(params, batch)[:, 0, :V]
+    got = make_prefill_step(cfg_pad, Impl(), dtype=torch.float32)(padded, batch)[:, 0, :V]
+    launches = ops.LAUNCHES.snapshot()
+    check(launches["flash_attention"] == 2 * cfg.num_layers,
+          f"{cfg.name} padded: {launches['flash_attention']} flash launches, "
+          f"want {2 * cfg.num_layers}")
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()) and torch.equal(got.argmax(-1), want.argmax(-1))
+          and err <= 1e-3, f"{cfg.name}: the padded layout's logits differ ({err})")
+    emit(phase="padded_heads", arch=cfg.name, dtype="float32", batch=B, prompt_len=S,
+         heads=f"{cfg.num_heads}/{cfg.num_kv_heads}",
+         padded_heads=f"{cfg_pad.q_heads_eff}/{cfg_pad.kv_heads_eff}",
+         max_abs_diff=err, argmax_identical=True, launches=launches)
+    del params, padded, want, got
     torch.cuda.empty_cache()
     return launches
 
 
 def phase_serve(cfg, n_clients=12):
     """The engine behind the service step at full width and depth (bf16):
-    lockstep clients, one batch envelope of 8, a tampered frame. → (the
-    launch counts of that run, the layer-0 KV cache and positions of a
-    dense model or None)."""
+    lockstep clients, one batch envelope of 8, a tampered frame; decode
+    attention must launch once per attention block a tick. → (the launch
+    counts of that run, the layer-0 KV cache and positions of a dense model
+    or None)."""
     from repro_torch.core import framing, transports
     from repro_torch.kernels import ops
     from repro_torch.runtime import EngineService, encode_prompt
 
     max_new = 32
     path = GUARD_KERNELS + (("decode_attention",) if cfg.family != "ssm" else ())
+    torch.cuda.reset_peak_memory_stats()
     eng = _engine(cfg, torch.bfloat16, 0, 8, 1024)
     svc = EngineService(eng, timeout=600).start()
     rng = torch.Generator().manual_seed(SEED)
@@ -975,6 +1072,7 @@ def phase_serve(cfg, n_clients=12):
             refused = True
         torch.cuda.synchronize()
         launches = ops.LAUNCHES.snapshot()
+        ticks = eng.ticks - ticks0
     finally:
         svc.close()
 
@@ -985,9 +1083,14 @@ def phase_serve(cfg, n_clients=12):
           "a response is missing, short or out of the vocabulary")
     check(all(launches[n] > 0 for n in path),
           f"a kernel of the serving path never launched: {launches}")
+    n_attn = layer_kernels(cfg).get("flash_attention", 0)
+    check(launches["decode_attention"] == n_attn * ticks,
+          f"{cfg.name} serve: {launches['decode_attention']} decode-attention "
+          f"launches in {ticks} ticks, want {n_attn} a tick")
     same = sum(results[i] == batch[i] for i in range(8))
     lock_tokens = n_clients * max_new
     emit(phase="serve", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         ticks=ticks,
          dtype="bfloat16", max_batch=8, max_seq=1024, lockstep_requests=n_clients,
          prompt_tokens=[len(p) for p in prompts], max_new=max_new,
          lockstep_s=lock_s, lockstep_ticks=lock_ticks,
@@ -999,7 +1102,7 @@ def phase_serve(cfg, n_clients=12):
          batch_matches_lockstep=same, tampered_frame_refused=refused,
          launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     attn_inputs = None
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         caches = eng.state["caches"]
         attn_inputs = (caches["k"][0].clone(), caches["v"][0].clone(),
                        eng.state["pos"].clamp(max=eng.max_seq - 1).clone())
@@ -1162,20 +1265,29 @@ def phase_prefill_parity(cfg, B=2, S=160, S_dec=16):
     """In f32 at full width: the forward with the kernels against the
     forward with the plain versions (the same argmax wherever the top two
     logits are more than 100x the difference apart; near ties are counted),
-    and the last prefill logits against decode_step token by token."""
+    and the last prefill logits against decode_step token by token. An MoE
+    model runs at a capacity factor of E / k, where no expert can receive
+    more pairs than its capacity: a prefill may drop pairs and a decode
+    step never does, and the kernels' rounding could move a drop."""
+    from repro_torch.configs import replace
     from repro_torch.models import (Impl, decode_step, forward,
                                     init_decode_state, init_params)
     from repro_torch.runtime.steps import make_prefill_step
 
+    if cfg.moe:
+        cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=(
+            cfg.moe.num_experts / cfg.moe.top_k)))
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
                          dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
     V = cfg.vocab_size
-    lk, _ = forward(cfg, params, {"tokens": toks}, impl=Impl(), dtype=torch.float32)
+    lk, aux = forward(cfg, params, {"tokens": toks}, impl=Impl(), dtype=torch.float32)
     lp, _ = forward(cfg, params, {"tokens": toks}, dtype=torch.float32,
                     impl=Impl(attention="plain", decode_attention="plain",
                               ssd="plain"))
+    check(not cfg.moe or aux["moe_drop_frac"].item() == 0.0,
+          f"{cfg.name}: pairs dropped at capacity factor {cfg.moe and cfg.moe.capacity_factor}")
     lk, lp = lk[..., :V], lp[..., :V]
     kern_err = (lk - lp).abs().max().item()
     top2 = lp.topk(2, dim=-1).values
@@ -1196,8 +1308,9 @@ def phase_prefill_parity(cfg, B=2, S=160, S_dec=16):
     dec_err = (pre - dec).abs().max().item()
     check(torch.equal(pre.argmax(-1), dec.argmax(-1)) and dec_err <= 1e-3,
           f"{cfg.name}: prefill and decode disagree (max err {dec_err})")
-    emit(phase="parity_prefill", arch=cfg.name, dtype="float32", batch=B,
-         prompt_len=S, kernel_vs_plain_max_abs=kern_err,
+    emit(phase="parity_prefill", arch=cfg.name, layers=cfg.num_layers,
+         dtype="float32", batch=B, prompt_len=S, window=cfg.swa_window,
+         kernel_vs_plain_max_abs=kern_err,
          argmax_identical=bool(same.all()), near_ties=int((~decided).sum()),
          decode_prompt_len=S_dec, prefill_vs_decode_max_abs=dec_err,
          prefill_decode_argmax_identical=True)
@@ -1345,6 +1458,7 @@ def kernels_line(cfg, launches, err, attn_inputs):
             lambda: da._decode_attention_split_merge(q, k, v, qp, kp)),
         split_plan=da.split_plan(B, S, Hkv, da._slots(0, q.dtype, Dh, H // Hkv)),
         at_full_cache=decode_at(gen, B, 1024, H, Hkv, Dh, layers=cfg.num_layers),
+        at_qwen3_cache=decode_at(gen, B, 1024, 40, 8, 128, layers=40),
         at_long_cache=decode_at(gen, B, 16384, H, Hkv, Dh, layers=1))
     del q, k, v, attn_inputs
     torch.cuda.empty_cache()
@@ -1378,8 +1492,9 @@ def cold_ms(fn, inputs, iters):
 def decode_at(gen, B, S, H, Hkv, Dh, layers):
     """Decode attention over ``layers`` distinct (B, S, Hkv, Dh) bf16 caches
     with every row valid, called in turn as a decode tick calls its layers:
-    with 16 layers of (8, 1024, 8, 64) (268 MB) or one (8, 16384, 8, 64)
-    cache (268 MB) each call finds its cache cold in L2. Eager, graph replay
+    with 16 layers of (8, 1024, 8, 64) (268 MB), 40 of (8, 1024, 8, 128)
+    (1.34 GB, qwen3-14b's) or one (8, 16384, 8, 64) cache (268 MB) each
+    call finds its cache cold in L2. Eager, graph replay
     (one capture of a pass over the layers), the earlier design, SDPA, the
     byte bound; the first layer against the plain version (2e-2)."""
     from repro_torch.kernels import decode_attention as da
@@ -1395,7 +1510,7 @@ def decode_at(gen, B, S, H, Hkv, Dh, layers):
     calls = [lambda k=k, v=v: da.decode_attention_cuda(q, k, v, qp, kp) for k, v in caches]
     earlier = [lambda k=k, v=v: da._decode_attention_split_merge(q, k, v, qp, kp)
                for k, v in caches]
-    per_pass = 32 // layers              # 32 calls: 2 passes over 16 layers, or 32 calls
+    per_pass = max(1, 32 // layers)      # 2 passes over 16 layers, 1 over 40, or 32 calls
     calls, earlier = calls * per_pass, earlier * per_pass
     b_ms, by = bound(2 * B * S * Hkv * Dh * 2 + 2 * q.numel() * 2 + kp.numel() * 4 + B * 4,
                      4 * H * Dh * B * S, "bf16")
@@ -1471,30 +1586,48 @@ def flash_row(gen, launches, err):
                 tensor_core_instr=tensor_core_instr("flash_attention",
                                                     ("flash_fwd_wgmma",)))
     del q, k, v, qs, ks, vs
-    row["at_dh80"] = flash_at_dh80(gen)
+    row["at_dh80"] = flash_at(gen, 4, 2048, 32, 32, 80)
+    row["at_qwen3"] = flash_at(gen, 4, 2048, 40, 8, 128)
+    row["at_mixtral"] = flash_at(gen, 2, 6144, 32, 8, 128, window=4096)
     return row
 
 
-def flash_at_dh80(gen, B=4, S=2048, H=32, Dh=80):
-    """The forward at Dh 80, zamba2-2.7b's attention (32 heads, MHA), over
-    B prompts of S tokens, causal, bf16: ms, plain ms, bound, SDPA and the
-    error against the plain version."""
+def flash_at(gen, B, S, H, Hkv, Dh, window=None):
+    """The forward over B prompts of S tokens, H query heads over Hkv kv
+    heads of Dh, causal (within ``window`` if given), bf16: zamba2-2.7b's
+    attention (Dh 80, MHA), qwen3-14b's prefill, mixtral-8x7b's past its
+    window. ms, plain ms, the bound from this run's valid pairs, SDPA
+    (``is_causal``, or the same pairs as a boolean mask) and the error
+    against the plain version."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    q, k, v, qp, kp = flash_inputs(gen, B, S, S, H, H, Dh, torch.bfloat16, tail=0)
-    pairs = int(((kp[:, None, :] <= qp[:, :, None]) & (kp[:, None, :] >= 0)).sum())
-    e = (fa.flash_attention_cuda(q, k, v, qp, kp).float()
-         - fa.flash_attention_plain(q, k, v, qp, kp).float()).abs().max().item()
-    check(e <= 2e-2, f"flash_attention at Dh 80: max err {e}")
-    b_ms, by = bound(4 * q.numel() * 2 + (qp.numel() + kp.numel()) * 4,
+    q, k, v, qp, kp = flash_inputs(gen, B, S, S, H, Hkv, Dh, torch.bfloat16, tail=0)
+    ok = (kp[:, None, :] <= qp[:, :, None]) & (kp[:, None, :] >= 0)
+    if window is not None:
+        ok &= (qp[:, :, None] - kp[:, None, :]) < window
+    pairs = int(ok.sum())
+    e = (fa.flash_attention_cuda(q, k, v, qp, kp, window=window).float()
+         - fa.flash_attention_plain(q, k, v, qp, kp, window=window).float()
+         ).abs().max().item()
+    check(e <= 2e-2, f"flash_attention at ({B}, {S}, {H}/{Hkv}, {Dh}), window "
+          f"{window}: max err {e}")
+    b_ms, by = bound(2 * (q.numel() + k.numel()) * 2 + (qp.numel() + kp.numel()) * 4,
                      4 * Dh * H * pairs, "bf16")
     qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    return dict(shape=f"q/k/v ({B}, {S}, {H}, {Dh}) bf16, causal",
-                ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, qp, kp), 20),
-                plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, qp, kp), 2),
-                bound_ms=b_ms, bound_by=by, max_abs_err=e,
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=True), 20))
+    mask = ok[:, None] if window is not None else None
+
+    def library():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              is_causal=mask is None,
+                                              enable_gqa=H != Hkv)
+    return dict(shape=f"q ({B}, {S}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
+                      f"causal" + (f", window {window}" if window else ""),
+                ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, qp, kp,
+                                                           window=window), 20),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, qp, kp,
+                                                                  window=window), 2),
+                bound_ms=b_ms, bound_by=by, valid_pairs=pairs, max_abs_err=e,
+                library_ms=cuda_ms(library, 20))
 
 
 FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma")
@@ -1554,24 +1687,28 @@ def flash_bwd_row(gen, launches, err):
                                                    FLASH_BWD_KERNELS[1:]))
     check(row["tensor_core_instr"] > 0, "flash_attention_bwd: no HGMMA in its kernels")
     del args
-    row["at_dh80"] = flash_bwd_at_dh80(gen)
+    row["at_dh80"] = flash_bwd_at(gen, 1, 2048, 32, 32, 80)
+    row["at_olmo"] = flash_bwd_at(gen, 2, 2048, 16, 16, 128)
     return row
 
 
-def flash_bwd_at_dh80(gen, B=1, S=2048, H=32, Dh=80):
-    """The backward at Dh 80, zamba2-2.7b's attention (32 heads, MHA, its
-    training microbatch of 1 x 2048), causal, bf16: ms, earlier ms, pass ms,
-    bound, SDPA's backward and the error against the plain version."""
+def flash_bwd_at(gen, B, S, H, Hkv, Dh):
+    """The backward at another training shape, causal, bf16: zamba2-2.7b's
+    attention (Dh 80, 32 heads, MHA, its microbatch of 1 x 2048), olmo-1b's
+    (Dh 128, 16 heads, MHA, 2 x 2048). ms, earlier ms, pass ms, bound,
+    SDPA's backward and the error against the plain version."""
     from repro_torch.kernels import flash_attention as fa
-    args, pairs, nbytes, lib = flash_bwd_case(gen, B, S, H, H, Dh)
+    args, pairs, nbytes, lib = flash_bwd_case(gen, B, S, H, Hkv, Dh)
     got = fa.flash_attention_bwd_cuda(*args)
     want = fa.flash_attention_bwd_plain(*args)
     e = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
     excess = max(((g.float() - w.float()).abs() - 2e-2 * (1 + w.float().abs())).max().item()
                  for g, w in zip(got, want))
-    check(excess <= 0, f"flash_attention_bwd at Dh 80: over tolerance by {excess}")
+    check(excess <= 0, f"flash_attention_bwd at ({B}, {S}, {H}/{Hkv}, {Dh}): over "
+          f"tolerance by {excess}")
     b_ms, by = bound(nbytes, 10 * Dh * H * pairs, "bf16")
-    return dict(shape=f"q/k/v ({B}, {S}, {H}, {Dh}) bf16, causal, dO, lse",
+    return dict(shape=f"q ({B}, {S}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
+                      f"causal, dO, lse",
                 ms=cuda_ms(lambda: fa.flash_attention_bwd_cuda(*args), 20),
                 earlier_ms=cuda_ms(lambda: fa._flash_attention_bwd_mma_sync(*args), 10),
                 pass_ms=short_names(kernel_ms(lambda: fa.flash_attention_bwd_cuda(*args)),
@@ -1664,38 +1801,48 @@ def main():
         sys.exit(2)
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "src"))
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, replace
     from repro_torch.device import resolve
     resolve("cuda")                          # TF32 off for the f32 phase
 
     t0 = time.perf_counter()
     smi = phase_card()
     err = phase_kernels()
-    llama, mamba, zamba = (get_config(a) for a in
-                           ("llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b"))
+    llama, mamba, zamba, olmo, smollm, qwen3 = (get_config(a) for a in (
+        "llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b", "olmo-1b", "smollm-360m",
+        "qwen3-14b"))
+    mixtral = replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS)
     launches = {}                            # summed over the main-path runs
 
     def add(counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
-    for cfg in (llama, mamba, zamba):
+    for cfg in (llama, mamba, zamba, olmo, smollm, qwen3):
         add(phase_prefill(cfg))
+    add(phase_prefill(mixtral, B=2, S=6144))
+    add(phase_padded(smollm, SMOLLM_PADS))
     counts, attn_inputs = phase_serve(llama)
     add(counts)
-    add(phase_serve(mamba, n_clients=8)[0])
-    add(phase_serve(zamba, n_clients=8)[0])
+    for cfg in (mamba, zamba, olmo, smollm, qwen3, mixtral):
+        add(phase_serve(cfg, n_clients=8)[0])
     add(phase_train(llama))
     add(phase_train(mamba))
     add(phase_train(zamba, micro=ZAMBA_MICRO))
+    add(phase_train(olmo))
+    add(phase_train(smollm))
     kernels = kernels_line(llama, launches, err, attn_inputs)
     del attn_inputs
     torch.cuda.empty_cache()
     phase_grad_parity(llama)
     phase_grad_parity(mamba)
+    phase_grad_parity(olmo)
     phase_parity(llama)
     for cfg in (llama, mamba, zamba):
         phase_prefill_parity(cfg)
+    for cfg in (olmo, smollm, qwen3):
+        phase_prefill_parity(replace(cfg, num_layers=2))
+    phase_prefill_parity(replace(mixtral, num_layers=2), B=1, S=4224)
     emit(phase="done", wall_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

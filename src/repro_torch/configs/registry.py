@@ -1,7 +1,9 @@
 """Architecture registry: ``--arch <id>`` → ModelConfig (full + reduced smoke).
 
-Only the architectures the port serves are registered; the rest of
-``repro.configs.registry`` joins as their families are ported.
+The dense, MoE, SSM and hybrid architectures of ``repro.configs.registry``
+are registered. whisper-tiny (encoder-decoder) and llava-next-mistral-7b
+(vision tokens) join as their families are ported; grok-1-314b is here
+for its reduced config (its bf16 weights fit no card).
 """
 from __future__ import annotations
 
@@ -14,6 +16,11 @@ _ARCH_MODULES: Dict[str, str] = {
     "llama3.2-1b": "repro_torch.configs.llama3p2_1b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1p3b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
+    "olmo-1b": "repro_torch.configs.olmo_1b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

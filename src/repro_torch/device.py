@@ -25,3 +25,17 @@ def resolve(device="cuda") -> torch.device:
     elif d.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return d
+
+
+def card_memory(device) -> int | None:
+    """Bytes of memory on ``device`` if it is a CUDA card, else None."""
+    d = resolve(device)
+    return torch.cuda.get_device_properties(d).total_memory if d.type == "cuda" else None
+
+
+def check_fits(what: str, nbytes: int, capacity: int | None) -> None:
+    """Raise ValueError, saying why, when ``nbytes`` exceed ``capacity``
+    (``card_memory``; None: not a card, nothing to check)."""
+    if capacity is not None and nbytes > capacity:
+        raise ValueError(f"{what} needs {nbytes / 1e9:.1f} GB, more than the "
+                         f"card's {capacity / 1e9:.1f} GB")

@@ -4,7 +4,11 @@ the GPU by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --full
 
 Weights are random, drawn from seed 0, in bfloat16. ``--device cpu`` runs
-the plain versions of the kernels.
+the plain versions of the kernels. ``--max-seq`` defaults to 96, or to the
+sliding window where the model's is shorter (a longer context needs a ring
+cache, which the port does not have yet). A model whose bf16 weights exceed
+the card's memory is refused with the sizes (mixtral-8x7b at all 32 layers,
+grok-1-314b).
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import time
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
-from repro_torch.device import resolve
+from repro_torch.device import card_memory, check_fits, resolve
 from repro_torch.kernels import ops
 from repro_torch.models import init_params
 from repro_torch.runtime import Request, ServingEngine
@@ -25,7 +29,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="llama3.2-1b", choices=list(ARCH_IDS))
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--max-seq", type=int, default=96)
+    ap.add_argument("--max-seq", type=int, default=None)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--device", default="cuda")
@@ -34,10 +38,16 @@ def main(argv=None):
     dev = resolve(args.device)
     dtype = torch.bfloat16
     cfg = get_config(args.arch) if args.full else get_reduced(args.arch)
+    max_seq = args.max_seq or min(96, cfg.swa_window or 96)
+    try:
+        check_fits(f"serving {cfg.name} (bf16 weights)", 2 * cfg.param_count(),
+                   card_memory(dev))
+    except ValueError as e:
+        ap.error(str(e))
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dtype=dtype)
     eng = ServingEngine(cfg, params, max_batch=args.max_batch,
-                        max_seq=args.max_seq, dtype=dtype, device=dev)
+                        max_seq=max_seq, dtype=dtype, device=dev)
 
     ops.LAUNCHES.reset()
     t0 = time.perf_counter()

@@ -7,10 +7,13 @@ failure injection, straggler telemetry), on the GPU by default.
       --fail-at 4
 
 ``--full`` trains the architecture at its published size in bf16 compute
-over f32 parameters and moments (on the card: flash attention's forward and
-backward kernels in every layer; the dense family only, since the SSD
-kernel has no backward yet); without it, the reduced twin in f32. Weights
-are random, drawn from ``--seed``; the data is ``SyntheticDataset``.
+over f32 parameters and moments (on the card: flash attention's and the SSD
+scan's forward and backward kernels in every layer); without it, the
+reduced twin in f32. Weights are random, drawn from ``--seed``; the data is
+``SyntheticDataset``. A model whose f32 parameters, gradients and two AdamW
+moments (16 bytes a parameter) exceed the card's memory is refused with
+the sizes (qwen3-14b, mixtral-8x7b, grok-1-314b: they need the multi-device
+fabric).
 """
 from __future__ import annotations
 
@@ -20,7 +23,11 @@ import numpy as np
 
 from repro_torch.configs import (ARCH_IDS, OptimizerConfig, TrainConfig,
                                  get_config, get_reduced)
+from repro_torch.device import card_memory, check_fits
 from repro_torch.runtime import FailureInjector, Trainer
+
+# f32 parameters, gradients and AdamW's two moments
+TRAIN_BYTES_PER_PARAM = 16
 
 
 def main(argv=None):
@@ -52,6 +59,12 @@ def main(argv=None):
     cfg = get_config(args.arch) if full else get_reduced(args.arch)
     print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
           f"({'full' if full else 'reduced'}) on {args.device}")
+    try:
+        check_fits(f"training {cfg.name} (f32 parameters, gradients and AdamW "
+                   f"moments, {TRAIN_BYTES_PER_PARAM} bytes a parameter)",
+                   TRAIN_BYTES_PER_PARAM * cfg.param_count(), card_memory(args.device))
+    except ValueError as e:
+        ap.error(f"{e}; it needs the multi-device fabric")
 
     tcfg = TrainConfig(
         microbatch_size=micro, dtype="bfloat16" if full else "float32",

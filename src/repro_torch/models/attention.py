@@ -1,7 +1,11 @@
-"""GQA attention layer: projections, RoPE, full-sequence self-attention
+"""GQA attention layer: projections, qk-norm, RoPE, full-sequence
+self-attention (causal, with the sliding window where the config has one)
 and the dense-cache insert-then-attend protocol of decode (the port of that
-subset of ``repro.models.attention``; ``prefill_attn``, ring caches and
-cross-attention are not ported yet).
+subset of ``repro.models.attention``). The head counts are the effective
+ones, so a head-padded layout (``transformer._init_attn``) runs as it is.
+Not ported yet: ``prefill_attn``, cross-attention and the ring cache of a
+window shorter than the context (``model.init_decode_state`` raises for
+that state).
 
 The attention itself is ``kernels.ops.attention`` (full sequence) or
 ``kernels.ops.decode_attention`` (one token): the CUDA kernel for CUDA

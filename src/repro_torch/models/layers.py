@@ -1,5 +1,5 @@
 """Core layers in PyTorch: norms, the GLU MLP, embeddings, RoPE (the port of
-the dense and SSM subset of ``repro.models.layers``).
+``repro.models.layers``).
 
 Parameters are plain nested dicts of tensors, as the reference's pytrees;
 every function is pure. Norms and RoPE compute in f32 and cast back, and
@@ -19,12 +19,36 @@ def padded_vocab(vocab_size: int) -> int:
     return ((vocab_size + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
 
 
+# The most elements one f32 draw of ``dense_init`` holds (1 GiB). A larger
+# tensor is drawn in slices of its leading axes (a stack layer by layer,
+# mixtral's experts a few at a time), each cast as it is drawn, so the f32
+# temporary stays small beside the weights. Tensors up to this size are
+# drawn whole, as before.
+_DRAW_ELEMS = 1 << 28
+
+
 def dense_init(gen: torch.Generator, shape, fan_in: int, dtype) -> torch.Tensor:
     """Truncated-normal (±2σ) fan-in init, drawn in f32 on the generator's
-    device (the reference's ``layers.dense_init``)."""
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    device and cast to ``dtype`` (the reference's ``layers.dense_init``)."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    _fill_trunc_normal(out, gen, 1.0 / max(1, fan_in) ** 0.5)
+    return out
+
+
+def _fill_trunc_normal(out: torch.Tensor, gen: torch.Generator, scale: float):
+    if out.numel() > _DRAW_ELEMS and out.ndim > 1:
+        row = out.numel() // out.shape[0]
+        if row > _DRAW_ELEMS:
+            for r in out:
+                _fill_trunc_normal(r, gen, scale)
+        else:
+            per = _DRAW_ELEMS // row
+            for i in range(0, out.shape[0], per):
+                _fill_trunc_normal(out[i:i + per], gen, scale)
+        return
+    t = torch.empty(out.shape, dtype=torch.float32, device=out.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t.mul_(1.0 / max(1, fan_in) ** 0.5).to(dtype)
+    out.copy_(t.mul_(scale))
 
 
 def rms_norm(x: torch.Tensor, weight, eps: float) -> torch.Tensor:
@@ -35,10 +59,44 @@ def rms_norm(x: torch.Tensor, weight, eps: float) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def np_layernorm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm (no scale, no bias): the population
+    variance in f32, cast back."""
+    return layer_norm(x, None, None, eps)
+
+
+def layer_norm(x: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def init_norm(cfg: ModelConfig, lead=(), dtype=torch.float32, device="cpu") -> dict:
+    """A norm's parameters with leading axes ``lead`` (``(L,)`` for a
+    stack), as the reference's ``init_norm``: ``{}`` for np_layernorm,
+    ``{"scale"}`` (ones) for rmsnorm, and ``{"scale", "bias"}`` (zeros)
+    for layernorm."""
+    if cfg.norm_type == "np_layernorm":
+        return {}
+    shape = (*lead, cfg.d_model)
+    p = {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=dtype, device=device)
+    return p
+
+
 def apply_norm(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm_type!r} is not ported yet")
-    return rms_norm(x, params["scale"], cfg.norm_eps)
+    if cfg.norm_type == "rmsnorm":
+        return rms_norm(x, params["scale"], cfg.norm_eps)
+    if cfg.norm_type == "np_layernorm":
+        return np_layernorm(x, cfg.norm_eps)
+    return layer_norm(x, params["scale"], params.get("bias"), cfg.norm_eps)
 
 
 _ACTIVATIONS = {"silu": F.silu, "relu": F.relu,

@@ -1,7 +1,8 @@
-"""Blocks and layer stacks for the dense, SSM and hybrid families (the port
-of that subset of ``repro.models.transformer``).
+"""Blocks and layer stacks for the dense, MoE, SSM and hybrid families (the
+port of that subset of ``repro.models.transformer``).
 
   dense  : [attn → ffn] × L
+  moe    : [attn → moe-ffn] × L (aux losses summed over the layers)
   ssm    : [mamba2] × L
   hybrid : ([mamba2] × attn_every → shared attn/ffn block) × (L / attn_every)
 
@@ -9,7 +10,9 @@ Layer parameters are stacked on a leading L axis, as the reference's
 ``init_stack`` produces them; the hybrid family's attention block is one
 block whose weights every insertion shares (autograd sums its gradient
 over the insertions). The stacks walk the L axis with a Python loop (the
-reference's ``lax.scan``); ``remat`` is not ported. The decode stacks
+reference's ``lax.scan``); ``remat`` is not ported. The full-sequence
+stacks return (x, aux) as the reference's do: aux holds the MoE losses
+(``zero_aux``), and is empty for the other families. The decode stacks
 update the stacked decode state in place.
 """
 from __future__ import annotations
@@ -20,9 +23,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import apply_mlp, apply_norm, dense_init
-from repro_torch.tree import map_tree
+from repro_torch.models.layers import apply_mlp, apply_norm, dense_init, init_norm
+from repro_torch.tree import leaves, map_tree
 
 _IMPLS = ("kernel", "plain")
 
@@ -45,25 +49,41 @@ class Impl:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a configuration whose family the port does not run yet."""
-    if (cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe or cfg.enc_dec
-            or cfg.swa_window or cfg.vision_tokens
-            or (cfg.family == "hybrid" and not cfg.shared_attn)):
+    """Raise for a configuration whose family the port does not run yet
+    (encoder-decoder, vision tokens, a hybrid without a shared block).
+    A sliding window is admitted: the full-sequence stacks apply it, and
+    ``model.init_decode_state`` raises where a decode state would need a
+    ring cache."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.enc_dec
+            or cfg.vision_tokens or (cfg.family == "hybrid" and not cfg.shared_attn)):
         raise NotImplementedError(
-            f"{cfg.name}: only dense full-attention, SSM and shared-attention "
-            f"hybrid models are ported yet")
+            f"{cfg.name}: only dense, MoE, SSM and shared-attention hybrid "
+            f"models are ported yet")
+
+
+def zero_aux(cfg: ModelConfig, device) -> dict:
+    """The aux losses a stack starts from: the MoE terms at 0, else {}."""
+    if cfg.moe:
+        return {k: torch.zeros((), device=device)
+                for k in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")}
+    return {}
+
+
+def _add_aux(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
 
 
 def init_stack(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
                dtype=torch.float32) -> dict:
     """``n_layers`` blocks stacked on a leading L axis: the tree of the
-    reference's ``init_stack`` (dense: ln1, attn {wq, wk, wv, wo}, ln2,
-    ffn {up, down, gate}; ssm and hybrid: ln1, mamba)."""
+    reference's ``init_stack`` (dense and moe: ln1, attn {wq, wk, wv, wo
+    [, q_norm, k_norm]}, ln2, ffn {up, down, gate} or {router, gate, up,
+    down}; ssm and hybrid: ln1, mamba). Norms are ``layers.init_norm``'s:
+    empty for np_layernorm."""
     check_ported(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return _init_attn_blocks(cfg, gen, n_layers, dtype)
-    ones = torch.ones((n_layers, cfg.d_model), dtype=dtype, device=gen.device)
-    return {"ln1": {"scale": ones},
+    return {"ln1": init_norm(cfg, (n_layers,), dtype, gen.device),
             "mamba": ssm_mod.init_mamba_stack(cfg, gen, n_layers, dtype)}
 
 
@@ -74,27 +94,47 @@ def init_shared_block(cfg: ModelConfig, gen: torch.Generator,
     return map_tree(lambda t: t[0].clone(), _init_attn_blocks(cfg, gen, 1, dtype))
 
 
-def _init_attn_blocks(cfg: ModelConfig, gen: torch.Generator, L: int, dtype) -> dict:
-    D = cfg.d_model
-    if cfg.q_heads_eff != cfg.num_heads or cfg.kv_heads_eff != cfg.num_kv_heads:
-        raise NotImplementedError("head padding is not ported yet")
-    H, Hkv, Dh, F = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
-    attn = {"wq": dense_init(gen, (L, D, H, Dh), D, dtype),
-            "wk": dense_init(gen, (L, D, Hkv, Dh), D, dtype),
-            "wv": dense_init(gen, (L, D, Hkv, Dh), D, dtype),
-            "wo": dense_init(gen, (L, H, Dh, D), H * Dh, dtype)}
+def _init_attn(cfg: ModelConfig, gen: torch.Generator, L: int, dtype) -> dict:
+    """wq (L, D, Hq, Dh), wk / wv (L, D, Hkv, Dh), wo (L, Hq, Dh, D) over
+    the effective head counts. With head padding (``pad_q_heads`` /
+    ``pad_kv_heads``, the reference's padded ``init_attn``) the real heads
+    keep their (kv, j) place in the padded (kv_pad, g_pad) grid, and the
+    pad rows of wq, wk, wv and wo are zero: pad kv heads give k = v = 0
+    and pad q heads add exactly 0 to the output."""
+    D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Hp, Hkvp = cfg.q_heads_eff, cfg.kv_heads_eff
+    g, gp = H // Hkv, Hp // Hkvp
+    if Hkvp < Hkv or gp < g or Hp % Hkvp:
+        raise ValueError(f"{cfg.name}: cannot pad {H}/{Hkv} heads to {Hp}/{Hkvp}")
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=gen.device)
+    wq, wo = zeros(L, D, Hkvp, gp, Dh), zeros(L, Hkvp, gp, Dh, D)
+    wk, wv = zeros(L, D, Hkvp, Dh), zeros(L, D, Hkvp, Dh)
+    wq[:, :, :Hkv, :g] = dense_init(gen, (L, D, Hkv, g, Dh), D, dtype)
+    wk[:, :, :Hkv] = dense_init(gen, (L, D, Hkv, Dh), D, dtype)
+    wv[:, :, :Hkv] = dense_init(gen, (L, D, Hkv, Dh), D, dtype)
+    wo[:, :Hkv, :g] = dense_init(gen, (L, Hkv, g, Dh, D), H * Dh, dtype)
+    attn = {"wq": wq.reshape(L, D, Hp, Dh), "wk": wk, "wv": wv,
+            "wo": wo.reshape(L, Hp, Dh, D)}
     if cfg.qk_norm:
         attn["q_norm"] = torch.ones((L, Dh), dtype=dtype, device=gen.device)
         attn["k_norm"] = torch.ones((L, Dh), dtype=dtype, device=gen.device)
-    ffn = {"up": dense_init(gen, (L, D, F), D, dtype),
-           "down": dense_init(gen, (L, F, D), F, dtype)}
-    if cfg.mlp_type == "glu":
-        ffn["gate"] = dense_init(gen, (L, D, F), D, dtype)
+    return attn
 
-    def ones():
-        return torch.ones((L, D), dtype=dtype, device=gen.device)
-    return {"ln1": {"scale": ones()}, "attn": attn, "ln2": {"scale": ones()},
-            "ffn": ffn}
+
+def _init_attn_blocks(cfg: ModelConfig, gen: torch.Generator, L: int, dtype) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    attn = _init_attn(cfg, gen, L, dtype)
+    if cfg.moe:
+        ffn = moe_mod.init_moe_stack(cfg, gen, L, dtype)
+    else:
+        ffn = {"up": dense_init(gen, (L, D, F), D, dtype),
+               "down": dense_init(gen, (L, F, D), F, dtype)}
+        if cfg.mlp_type == "glu":
+            ffn["gate"] = dense_init(gen, (L, D, F), D, dtype)
+    return {"ln1": init_norm(cfg, (L,), dtype, gen.device), "attn": attn,
+            "ln2": init_norm(cfg, (L,), dtype, gen.device), "ffn": ffn}
 
 
 def layer(stacked: dict, i: int) -> dict:
@@ -120,7 +160,8 @@ def layers(stacked: dict) -> list:
 
 
 def num_layers(stacked: dict) -> int:
-    return stacked["ln1"]["scale"].shape[0]
+    """The L of a stacked tree, read from any leaf (a norm may have none)."""
+    return leaves(stacked)[0].shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -132,31 +173,43 @@ def _mamba_block(cfg: ModelConfig, p, x, *, impl: Impl):
                                    impl=impl.ssd)
 
 
+def _ffn(cfg: ModelConfig, p, h):
+    """The block's FFN → (out, aux): the MoE FFN where ``cfg.moe``, else
+    the MLP with empty aux."""
+    if cfg.moe:
+        return moe_mod.apply_moe(cfg, p, h)
+    return apply_mlp(cfg, p, h), {}
+
+
 def _attn_block(cfg: ModelConfig, p, x, *, positions, impl: Impl):
     h = attn_mod.apply_attn(cfg, p["attn"], apply_norm(cfg, p["ln1"], x),
                             positions=positions, impl=impl.attention)
     x = x + h
-    return x + apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+    h, aux = _ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+    return x + h, aux
 
 
 def apply_block(cfg: ModelConfig, p, x, *, positions, impl: Impl):
-    """Full-sequence block (causal, RoPE)."""
+    """Full-sequence block (causal, RoPE) → (x, aux)."""
     if cfg.family == "ssm":
-        return _mamba_block(cfg, p, x, impl=impl)
+        return _mamba_block(cfg, p, x, impl=impl), {}
     return _attn_block(cfg, p, x, positions=positions, impl=impl)
 
 
 def apply_stack(cfg: ModelConfig, stacked, x, *, positions, impl: Impl):
-    """Walk the layer stack over a whole sequence."""
+    """Walk the layer stack over a whole sequence → (x, aux summed over the
+    layers)."""
+    aux = zero_aux(cfg, x.device)
     for p in layers(stacked):
-        x = apply_block(cfg, p, x, positions=positions, impl=impl)
-    return x
+        x, aux_l = apply_block(cfg, p, x, positions=positions, impl=impl)
+        aux = _add_aux(aux, aux_l)
+    return x, aux
 
 
 def apply_hybrid_stack(cfg: ModelConfig, mamba_stack, shared_block, x, *,
                        positions, impl: Impl):
     """zamba2: segments of ``attn_every`` mamba blocks, each followed by the
-    shared attention + MLP block."""
+    shared attention + MLP block → (x, aux (empty))."""
     every = cfg.attn_every
     blocks = layers(mamba_stack)
     if len(blocks) % every:
@@ -165,8 +218,8 @@ def apply_hybrid_stack(cfg: ModelConfig, mamba_stack, shared_block, x, *,
     for i, p in enumerate(blocks):
         x = _mamba_block(cfg, p, x, impl=impl)
         if (i + 1) % every == 0:
-            x = _attn_block(cfg, shared_block, x, positions=positions, impl=impl)
-    return x
+            x, _ = _attn_block(cfg, shared_block, x, positions=positions, impl=impl)
+    return x, zero_aux(cfg, x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +240,7 @@ def _decode_attn_block(cfg: ModelConfig, p, x, cache, pos, *, impl: Impl,
                                     cache, pos, use_rope=use_rope,
                                     impl=impl.decode_attention)
     x = x + h
-    h = apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
+    h, _ = _ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
     return x + h, cache
 
 
