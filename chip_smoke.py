@@ -23,7 +23,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              backward the same way at mamba2's and zamba2's shapes, ragged
              lengths, an init state and a final-state gradient, G > 1,
              tiles of heads that leave a group's last tile short, each
-             call twice).
+             call twice; decode and flash attention and the flash backward
+             also at whisper-tiny's exact shapes, non-causal over 1500
+             frames, and decode over llava's full ring of 4096 with its
+             window, in both dtypes).
              Then the repairs: attention and the SSD under grad run their
              forward and backward kernels, a backward through the decode
              kernel raises, and 70,000 one-row frames go through
@@ -40,7 +43,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              are zeroed just before and read just after and must equal one
              flash-attention launch per attention block and one SSD-scan
              launch per mamba block a call (llama 16, mamba2 48 SSD, zamba2
-             54 SSD and 9 flash, olmo 16, smollm 32, qwen3 40, mixtral 16).
+             54 SSD and 9 flash, olmo 16, smollm 32, qwen3 40, mixtral 16);
+             then llava-next-mistral-7b at full depth (32 layers, 14.5 GB)
+             over 2 prompts of 6144 tokens whose first 2880 positions are
+             projected patch embeddings (32 flash a call, the window
+             binds), and whisper-tiny over 8 x 1500 frames and 8 x 448
+             tokens (12 flash a call: 4 encoder, 4 self, 4 cross).
              Then smollm-360m in the JAX package's padded 32/8 head layout
              (its weights embedded with zero pad rows) against the unpadded
              model in f32 at full depth: identical argmax, max abs
@@ -48,13 +56,22 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 4. serve   — llama3.2-1b at full width and depth (bf16), max_batch 8,
              max_seq 1024: 12 concurrent lockstep clients and one batch
              envelope of 8; then mamba2-1.3b, zamba2-2.7b, olmo-1b,
-             smollm-360m, qwen3-14b and mixtral-8x7b (16 layers; max_seq
-             1024 is inside its window, a dense cache) the same way with 8
-             clients. Every request and response is a sealed frame through
-             the service step; a tampered frame must be refused. The launch
+             smollm-360m, qwen3-14b, mixtral-8x7b (16 layers; max_seq
+             1024 is inside its window, a dense cache) and
+             llava-next-mistral-7b the same way with 8 clients. Every
+             request and response is a sealed frame through the service
+             step; a tampered frame must be refused. The launch
              counts are zeroed just before and read just after; each kernel
              of the path must be > 0, and decode attention must launch once
              per attention block a tick.
+   decode  — uniform decode through ``make_decode_step`` (bf16, 8 rows,
+             64 ticks): whisper-tiny from its encoder output and cross K/V
+             built once (8 decode-attention launches a tick), llava at full
+             depth with max_seq 32768 on a ring cache filled as a wrapped
+             ring (32 a tick): ms per tick beside the floor, the state's
+             bytes beside the dense cache's. Then llava at 2 layers in f32:
+             4352 tokens decoded on the ring (it wraps) against the forward
+             with the window, identical argmax where decided, within 3e-4.
 5. train   — the port's ``Trainer`` at full width and depth for llama,
              mamba2, zamba2, olmo-1b and smollm-360m: f32 parameters and
              AdamW moments, bf16 compute, 8 x 2048 tokens a step in
@@ -64,24 +81,27 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              loss must fall and each attention and mamba block of each
              microbatch must launch its kernel's forward and backward once
              (llama 384 flash; mamba2 1152 SSD; zamba2 2592 SSD and 432
-             flash; olmo 384 flash; smollm 768 flash). Then one 1 x 512
-             microbatch for llama, mamba2 and olmo-1b: loss and gradients
+             flash; olmo 384 flash; smollm 768 flash); whisper-tiny the
+             same at 8 x 448 tokens over 1500 frames (288 flash: 12 a
+             microbatch). Then one 1 x 512 microbatch for llama, mamba2
+             and olmo-1b, 1 x 448 for whisper: loss and gradients
              through the kernels in bf16 against the plain versions in f32
              (loss to 2e-2 relative, every gradient leaf at cosine >= 0.99).
 6. parity  — in f32 at full width: the llama engine with the decode-attention
              kernel and with its plain version give identical greedy tokens;
              the reduced engine on the card equals it on the CPU; and for
-             the three families at full depth, and olmo-1b, smollm-360m,
-             qwen3-14b and mixtral-8x7b at 2 layers, the forward with the
-             kernels equals the forward with the plain versions (mixtral's
-             over 4224 tokens, past its window), and the last prefill
-             logits equal ``decode_step`` run token by token over the same
-             prompt (identical argmax, max abs difference printed; mixtral
+             the three families and whisper-tiny at full depth, and
+             olmo-1b, smollm-360m, qwen3-14b, mixtral-8x7b and llava at 2
+             layers, the forward with the kernels equals the forward with
+             the plain versions (mixtral's and llava's over 4224 tokens,
+             past the window, llava's with its vision prefix), and the
+             last prefill logits equal ``decode_step`` run token by token
+             over the same prompt (identical argmax, max abs difference printed; mixtral
              at a capacity factor of E / k, where neither path drops).
 
 Then a ``kernels`` JSON line (times from CUDA events, bounds from this
-run's inputs, launches summed over the prefill, serve and train phases;
-the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
+run's inputs, launches summed over the prefill, serve, decode and train
+phases; the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
 replaced timed in this run, and the two backwards the design each replaced
 (flash: ``mma.sync``; SSD: the per-head chunk kernel, also
 ``earlier_pass_ms``); the four add ``kernels_per_call``, the kernel
@@ -99,8 +119,13 @@ checked against the eager calls bit for bit), and ``kernels_per_call``
 counted the same way (must be 1); decode attention adds
 ``at_full_cache``, 16 layer caches of (8, 1024, 8, 64) called in turn,
 ``at_qwen3_cache``, qwen3-14b's 40 layer caches of (8, 1024, 8, 128) with
-40 query heads, and ``at_long_cache``, one (8, 16384, 8, 64) cache, all
-cold in L2;
+40 query heads, ``at_long_cache``, one (8, 16384, 8, 64) cache,
+``at_whisper_cross_cache``, whisper's 4 cross caches of (8, 1500, 6, 64)
+non-causal, and ``at_llava_ring``, llava's 32 full rings of (8, 4096, 8,
+128) with the window, all cold in L2; the flash forward adds
+``at_whisper_enc`` (8, 1500, 6/6, 64) and ``at_whisper_cross`` (448 over
+1500 frames), both non-causal, and the backward ``at_whisper_cross``
+(2 x 448 over 1500);
 guard_copy adds ``at_64MiB``; mac_update ``at_65536_rows`` and mac_batch
 ``at_32MiB``, 4 distinct 32 MiB inputs called in turn, cold in L2, eager
 and under graph replay), the
@@ -131,6 +156,8 @@ ZAMBA_MICRO = 1
 MIXTRAL_LAYERS = 16
 # the JAX package's padded head layout for smollm-360m (launch/dryrun.py)
 SMOLLM_PADS = dict(pad_q_heads=32, pad_kv_heads=8)
+# whisper-tiny's published text context: its decoder's prompts and cache
+WHISPER_TEXT = 448
 
 
 def emit(**rec):
@@ -407,36 +434,45 @@ def check_decode(gen):
     and bf16 (2e-2): the serving shapes, a window, ring positions, S off the
     64-row tile, Dh 128 with one kv head; several splits with the later ones
     fully masked; B·Hkv large enough for one split; the (8, 16384) long
-    cache; Dh 80 with g = 5 and 6 (40/8, 30/5, 48/8 heads). Each call twice
-    on the same inputs (identical: the arrival counters are back at 0), and
-    the earlier two-launch design checked too. → the worst bf16 error."""
+    cache; Dh 80 with g = 5 and 6 (40/8, 30/5, 48/8 heads); whisper's cross
+    cache (non-causal, 1500 rows) and self cache, llava's full ring. Each
+    call twice on the same inputs (identical: the arrival counters are back
+    at 0), and the earlier two-launch design checked too. → the worst bf16
+    error."""
     from repro_torch.kernels import decode_attention as da
-    cases = [  # B, S, H, Hkv, Dh, window, layout, lens, n_split (None: any)
-        (8, 1024, 32, 8, 64, None, "lens", None, None),
-        (8, 1024, 32, 8, 64, 256, "lens", None, None),
-        (4, 1000, 32, 8, 64, 128, "ring", None, None),
-        (2, 77, 16, 2, 128, None, "lens", None, None),
-        (3, 300, 8, 1, 128, 32, "lens", None, None),
-        (2, 4096, 8, 2, 64, None, "lens", [1000, 3], ">1"),
-        (3, 700, 12, 4, 64, None, "lens", [0, 1, 700], None),
-        (4, 1000, 40, 8, 80, None, "lens", None, None),
-        (3, 777, 30, 5, 80, 128, "lens", [777, 1, 400], None),
-        (2, 500, 48, 8, 80, None, "ring", None, None),
-        (64, 1024, 32, 8, 64, None, "lens", None, "1"),
-        (8, 16384, 32, 8, 64, None, "lens", [16384] * 8, ">1"),
+    cases = [  # B, S, H, Hkv, Dh, window, layout, lens, n_split (None: any), causal
+        (8, 1024, 32, 8, 64, None, "lens", None, None, True),
+        (8, 1024, 32, 8, 64, 256, "lens", None, None, True),
+        (4, 1000, 32, 8, 64, 128, "ring", None, None, True),
+        (2, 77, 16, 2, 128, None, "lens", None, None, True),
+        (3, 300, 8, 1, 128, 32, "lens", None, None, True),
+        (2, 4096, 8, 2, 64, None, "lens", [1000, 3], ">1", True),
+        (3, 700, 12, 4, 64, None, "lens", [0, 1, 700], None, True),
+        (4, 1000, 40, 8, 80, None, "lens", None, None, True),
+        (3, 777, 30, 5, 80, 128, "lens", [777, 1, 400], None, True),
+        (2, 500, 48, 8, 80, None, "ring", None, None, True),
+        (64, 1024, 32, 8, 64, None, "lens", None, "1", True),
+        (8, 16384, 32, 8, 64, None, "lens", [16384] * 8, ">1", True),
+        # the new main paths' exact shapes: whisper-tiny's cross cache (1500
+        # rows, off the 64-row tile) non-causal and its self cache of 448,
+        # llava's full ring of 4096 with its window of 4096
+        (8, 1500, 6, 6, 64, None, "lens", [1500] * 8, None, False),
+        (8, 448, 6, 6, 64, None, "lens", None, None, True),
+        (8, 4096, 32, 8, 128, 4096, "ring", None, None, True),
     ]
     worst = 0.0
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for B, S, H, Hkv, Dh, win, layout, lens, splits in cases:
-            case = (B, S, H, Hkv, Dh, win, layout, str(dtype))
+        for B, S, H, Hkv, Dh, win, layout, lens, splits, causal in cases:
+            case = (B, S, H, Hkv, Dh, win, layout, causal, str(dtype))
             q, k, v, qp, kp = decode_inputs(gen, B, S, H, Hkv, Dh, dtype, layout, lens)
             n_split = da.split_plan(B, S, Hkv, da._slots(0, dtype, Dh, H // Hkv))[1]
             check(splits is None or (n_split > 1 if splits == ">1" else n_split == 1),
                   f"decode_attention {case}: the plan has {n_split} splits")
-            want = da.decode_attention_plain(q, k, v, qp, kp, window=win)
-            got = da.decode_attention_cuda(q, k, v, qp, kp, window=win)
-            again = da.decode_attention_cuda(q, k, v, qp, kp, window=win)
-            earlier = da._decode_attention_split_merge(q, k, v, qp, kp, window=win)
+            mode = dict(causal=causal, window=win)
+            want = da.decode_attention_plain(q, k, v, qp, kp, **mode)
+            got = da.decode_attention_cuda(q, k, v, qp, kp, **mode)
+            again = da.decode_attention_cuda(q, k, v, qp, kp, **mode)
+            earlier = da._decode_attention_split_merge(q, k, v, qp, kp, **mode)
             e = (got.float() - want.float()).abs().max().item()
             check(e <= tol, f"decode_attention {case}: max err {e} > {tol}")
             check(torch.equal(got, again), f"decode_attention {case}: a second call differs")
@@ -527,6 +563,11 @@ def check_flash(gen):
         (2, 257, 257, 10, 2, 80, True, None, 3, 2, "ordered"),
         (2, 190, 600, 12, 2, 80, False, 70, 0, 3, "perm"),
         (3, 1, 333, 5, 1, 80, True, 64, 3, 0, "ordered"),
+        # whisper-tiny's encoder and cross-attention (non-causal, 1500 frames
+        # off the tiles) and its decoder's self-attention, at their shapes
+        (8, 1500, 1500, 6, 6, 64, False, None, 0, 0, "ordered"),
+        (8, 448, 1500, 6, 6, 64, False, None, 0, 0, "ordered"),
+        (8, 448, 448, 6, 6, 64, True, None, 0, 0, "ordered"),
     ]
     worst = 0.0
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
@@ -590,6 +631,11 @@ def check_flash_bwd(gen):
         (1, 383, 383, 10, 2, 80, True, 100, 3, 1),
         (1, 1, 129, 4, 1, 128, True, None, 0, 0),
         (2, 191, 64, 4, 4, 128, False, None, 1, 2),
+        # whisper-tiny's training microbatch: cross (448 over 1500) and
+        # encoder attention non-causal, decoder self-attention causal
+        (2, 448, 1500, 6, 6, 64, False, None, 0, 0),
+        (2, 1500, 1500, 6, 6, 64, False, None, 0, 0),
+        (2, 448, 448, 6, 6, 64, True, None, 0, 0),
     ]
     worst = 0.0
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
@@ -878,13 +924,39 @@ GUARD_KERNELS = ("guard_copy", "mac_batch", "mac_init_state", "mac_update",
 
 def layer_kernels(cfg):
     """{kernel: launches per forward} of a model's layer stack: flash
-    attention once per attention block (every layer of a dense or MoE
-    model, each insertion of a hybrid's shared block), the SSD scan once
-    per mamba block."""
-    n_attn = {"dense": cfg.num_layers, "moe": cfg.num_layers, "ssm": 0,
-              "hybrid": cfg.num_layers // max(1, cfg.attn_every)}[cfg.family]
-    n_ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    attention once per attention block (every layer of a dense, VLM or MoE
+    model, each insertion of a hybrid's shared block; an encoder-decoder's
+    encoder layers and its decoder's self and cross blocks), the SSD scan
+    once per mamba block."""
+    L = cfg.num_layers
+    n_attn = {"dense": L, "vlm": L, "moe": L, "ssm": 0, "audio": cfg.enc_layers + 2 * L,
+              "hybrid": L // max(1, cfg.attn_every)}[cfg.family]
+    n_ssd = L if cfg.family in ("ssm", "hybrid") else 0
     return {k: n for k, n in (("flash_attention", n_attn), ("ssd_scan", n_ssd)) if n}
+
+
+def decode_blocks(cfg):
+    """Decode-attention launches a tick: one per attention block of the
+    decoder (an encoder-decoder's self and cross blocks both)."""
+    if cfg.enc_dec:
+        return 2 * cfg.num_layers
+    return layer_kernels(cfg).get("flash_attention", 0)
+
+
+def model_batch(cfg, B, S, gen, dtype=torch.bfloat16):
+    """B random prompts of S tokens, and the inputs the model's family
+    adds, 0.1·N(0, 1) as the synthetic data draws them: a VLM's patch
+    embeddings (B, vision_tokens, vision_dim), an encoder-decoder's frames
+    (B, enc_ctx, D)."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device="cuda")}
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = (0.1 * torch.randn(
+            (B, cfg.vision_tokens, cfg.vision_dim), generator=gen, device="cuda")).to(dtype)
+    if cfg.enc_dec:
+        batch["frames"] = (0.1 * torch.randn((B, cfg.enc_ctx, cfg.d_model),
+                                             generator=gen, device="cuda")).to(dtype)
+    return batch
 
 
 def phase_prefill(cfg, n_calls=3, B=4, S=2048):
@@ -901,8 +973,7 @@ def phase_prefill(cfg, n_calls=3, B=4, S=2048):
                          dtype=torch.bfloat16)
     step = make_prefill_step(cfg, Impl(), dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                                     device="cuda")}
+    batch = model_batch(cfg, B, S, gen)
     step(params, batch)                      # warm-up (library loads), not measured
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -927,6 +998,10 @@ def phase_prefill(cfg, n_calls=3, B=4, S=2048):
             _, aux = forward(cfg, params, batch, dtype=torch.bfloat16, last_only=True)
         extra = dict(capacity_factor=cfg.moe.capacity_factor,
                      moe_drop_frac=aux["moe_drop_frac"].item() / cfg.num_layers)
+    if cfg.vision_tokens:
+        extra["vision_tokens"] = cfg.vision_tokens
+    if cfg.enc_dec:
+        extra.update(enc_layers=cfg.enc_layers, frames=cfg.enc_ctx)
     emit(phase="prefill", arch=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, dtype="bfloat16", batch=B, prompt_len=S,
          window=cfg.swa_window, calls=n_calls, ms_per_prefill=ms,
@@ -1083,7 +1158,7 @@ def phase_serve(cfg, n_clients=12):
           "a response is missing, short or out of the vocabulary")
     check(all(launches[n] > 0 for n in path),
           f"a kernel of the serving path never launched: {launches}")
-    n_attn = layer_kernels(cfg).get("flash_attention", 0)
+    n_attn = decode_blocks(cfg)
     check(launches["decode_attention"] == n_attn * ticks,
           f"{cfg.name} serve: {launches['decode_attention']} decode-attention "
           f"launches in {ticks} ticks, want {n_attn} a tick")
@@ -1102,13 +1177,162 @@ def phase_serve(cfg, n_clients=12):
          batch_matches_lockstep=same, tampered_frame_refused=refused,
          launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     attn_inputs = None
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         caches = eng.state["caches"]
         attn_inputs = (caches["k"][0].clone(), caches["v"][0].clone(),
                        eng.state["pos"].clamp(max=eng.max_seq - 1).clone())
     del eng, svc
     torch.cuda.empty_cache()
     return launches, attn_inputs
+
+
+def state_bytes(tree):
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def phase_decode(cfg, B=8, max_seq=448, ticks=64, warm=2):
+    """Uniform decode through ``make_decode_step`` at full width and depth
+    (bf16): B rows, ``ticks`` ticks after ``warm`` unmeasured ones, every
+    row at the same position. An encoder-decoder first encodes B x enc_ctx
+    frames (outside the count) and builds its cross K/V once. A window
+    shorter than ``max_seq`` decodes on a ring cache, filled before the
+    run: random K/V and the slot positions of a ring that has wrapped 7
+    times (every slot valid and inside the window, the tick's full work),
+    decoding on from position 7 W. Decode attention must launch once per
+    attention block a tick; the logits must be finite; the ring's slots
+    must hold the positions written. ms per tick beside the floor (the
+    weights and the state's valid K/V read once at 3.35 TB/s), the state's
+    bytes and, for a ring, those of the dense cache it stands for."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import Impl, init_decode_state, init_params
+    from repro_torch.models.model import encode
+    from repro_torch.runtime.steps import make_decode_step
+
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(8),
+                         dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    kw = {}
+    if cfg.enc_dec:
+        frames = model_batch(cfg, B, 1, gen)["frames"]
+        with torch.no_grad():
+            kw = dict(params=params, enc_out=encode(cfg, params, frames))
+    state = init_decode_state(cfg, B, max_seq, dtype=torch.bfloat16, device="cuda", **kw)
+    caches = state["caches"]
+    ring = "slot_pos" in caches
+    start = 0
+    if ring:
+        W = cfg.swa_window
+        start = 7 * W
+        for leaf in (caches["k"], caches["v"]):
+            for layer_cache in leaf:
+                layer_cache.copy_(torch.randn(layer_cache.shape, generator=gen,
+                                              device="cuda"))
+        caches["slot_pos"].copy_((start - W + torch.arange(
+            W, dtype=torch.int32, device="cuda"))[None].expand(cfg.num_layers, W))
+        state["pos"] = start
+    step = make_decode_step(cfg, Impl(), dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (B, warm + ticks), generator=gen,
+                         device="cuda")
+    for t in range(warm):
+        logits, state = step(params, state, toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    ops.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    for t in range(warm, warm + ticks):
+        logits, state = step(params, state, toks[:, t:t + 1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.LAUNCHES.snapshot()
+    n = decode_blocks(cfg)
+    check(launches["decode_attention"] == n * ticks,
+          f"{cfg.name} decode: {launches['decode_attention']} decode-attention "
+          f"launches in {ticks} ticks, want {n} a tick")
+    check(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+          f"{cfg.name} decode: non-finite logits")
+    check(state["pos"] == start + warm + ticks, f"{cfg.name} decode: pos {state['pos']}")
+    L, Hkv, Dh = cfg.num_layers, cfg.kv_heads_eff, cfg.head_dim
+    kv_row = 2 * Hkv * Dh * 2                         # k and v of one slot, bf16
+    extra = {}
+    if ring:
+        W = cfg.swa_window
+        last = start + warm + ticks - 1
+        want = torch.tensor([p - W if p > last else p
+                             for p in range(start, start + W)], dtype=torch.int32)
+        want = want.roll(start % W)
+        check(torch.equal(caches["slot_pos"][0].cpu(), want)
+              and torch.equal(caches["slot_pos"][-1].cpu(), want),
+              f"{cfg.name} decode: the ring's slot positions are not the ones written")
+        valid = L * B * W * kv_row
+        extra = dict(ring_window=W, start_pos=start,
+                     dense_cache_bytes=L * B * max_seq * kv_row)
+    else:
+        valid = L * B * (start + warm + ticks) * kv_row
+        if cfg.enc_dec:
+            valid += state_bytes(caches["cross"])
+    weight_bytes = state_bytes(params)
+    ms = wall / ticks * 1e3
+    emit(phase="decode", arch=cfg.name, layers=L, d_model=cfg.d_model, dtype="bfloat16",
+         batch=B, max_seq=max_seq, ticks=ticks, ring=ring, ms_per_tick=ms,
+         tokens_per_s=B * ticks / wall,
+         floor_ms=(weight_bytes + valid) / HBM_BYTES_PER_S * 1e3,
+         weight_bytes=weight_bytes, state_bytes=state_bytes(caches), launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
+    del params, state, caches, kw
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ring_parity(cfg, B=2, extra=256):
+    """A windowed model in f32 at full width (cut in depth by the caller):
+    ``W + extra`` tokens decoded one by one on a ring cache of W slots (the
+    ring wraps), against the forward over the same tokens with the window,
+    both through the kernels: the same argmax wherever the top two logits
+    are more than 100x the largest difference apart (near ties counted),
+    every logit within 3e-4 (the JAX package's ring test), decode attention
+    once per layer a token. → the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import Impl, decode_step, forward, init_decode_state, init_params
+
+    W, V = cfg.swa_window, cfg.vocab_size
+    n = W + extra
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(9),
+                         dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    toks = torch.randint(0, V, (B, n), generator=gen, device="cuda")
+    with torch.no_grad():
+        want = forward(cfg, params, {"tokens": toks}, impl=Impl(),
+                       dtype=torch.float32)[0][..., :V]
+    st = init_decode_state(cfg, B, 2 * W, dtype=torch.float32, device="cuda")
+    check(st["caches"]["slot_pos"].shape == (cfg.num_layers, W), "no ring cache")
+    got = torch.empty_like(want)
+    ops.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(n):
+            lg, st = decode_step(cfg, params, st, toks[:, t:t + 1], impl=Impl(),
+                                 dtype=torch.float32)
+            got[:, t] = lg[:, 0, :V]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.LAUNCHES.snapshot()
+    check(launches["decode_attention"] == cfg.num_layers * n,
+          f"ring parity: {launches['decode_attention']} decode launches for {n} tokens")
+    err = (got - want).abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 100 * err
+    same = got.argmax(-1) == want.argmax(-1)
+    check(bool(torch.isfinite(got).all()) and bool(same[decided].all()) and err <= 3e-4,
+          f"{cfg.name}: ring decode and the windowed forward disagree (max err {err})")
+    tail = (got[:, W:] - want[:, W:]).abs().max().item()
+    emit(phase="ring_parity", arch=cfg.name, layers=cfg.num_layers, dtype="float32",
+         batch=B, window=W, tokens=n, wraps=n // W, max_abs_diff=err,
+         max_abs_diff_past_wrap=tail, argmax_identical=bool(same.all()),
+         near_ties=int((~decided).sum()), ms_per_token=wall / n * 1e3, launches=launches)
+    del params, st, want, got
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1165,8 +1389,8 @@ def phase_train(cfg, steps=6, batch=8, seq=2048, micro=2):
     # the trained state serves without a graph: the step put requires_grad back
     check(not any(p.requires_grad for p in leaves(state["params"])),
           "train: the step left the parameters requiring grad")
-    logits = make_prefill_step(cfg)(state["params"], {"tokens": torch.arange(
-        128, device="cuda")[None]})
+    logits = make_prefill_step(cfg)(state["params"], model_batch(
+        cfg, 1, 128, torch.Generator(device="cuda").manual_seed(SEED)))
     check(logits.grad_fn is None and bool(torch.isfinite(logits).all()),
           "train: a prefill of the trained state built a graph or is not finite")
     del trainer, state, logits
@@ -1264,14 +1488,18 @@ def _to(tree, device):
 def phase_prefill_parity(cfg, B=2, S=160, S_dec=16):
     """In f32 at full width: the forward with the kernels against the
     forward with the plain versions (the same argmax wherever the top two
-    logits are more than 100x the difference apart; near ties are counted),
-    and the last prefill logits against decode_step token by token. An MoE
+    logits are more than 100x the difference apart; near ties are counted;
+    a VLM's with its vision prefix, an encoder-decoder's with its frames),
+    and the last prefill logits against decode_step token by token (text;
+    an encoder-decoder's decode state holds the cross K/V of the encoder
+    output). An MoE
     model runs at a capacity factor of E / k, where no expert can receive
     more pairs than its capacity: a prefill may drop pairs and a decode
     step never does, and the kernels' rounding could move a drop."""
     from repro_torch.configs import replace
     from repro_torch.models import (Impl, decode_step, forward,
                                     init_decode_state, init_params)
+    from repro_torch.models.model import encode
     from repro_torch.runtime.steps import make_prefill_step
 
     if cfg.moe:
@@ -1280,10 +1508,11 @@ def phase_prefill_parity(cfg, B=2, S=160, S_dec=16):
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
                          dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    batch = model_batch(cfg, B, S, gen, dtype=torch.float32)
+    toks = batch["tokens"]
     V = cfg.vocab_size
-    lk, aux = forward(cfg, params, {"tokens": toks}, impl=Impl(), dtype=torch.float32)
-    lp, _ = forward(cfg, params, {"tokens": toks}, dtype=torch.float32,
+    lk, aux = forward(cfg, params, batch, impl=Impl(), dtype=torch.float32)
+    lp, _ = forward(cfg, params, batch, dtype=torch.float32,
                     impl=Impl(attention="plain", decode_attention="plain",
                               ssd="plain"))
     check(not cfg.moe or aux["moe_drop_frac"].item() == 0.0,
@@ -1297,10 +1526,15 @@ def phase_prefill_parity(cfg, B=2, S=160, S_dec=16):
           f"{cfg.name}: kernel and plain forwards disagree (max err {kern_err})")
     del lk, lp
 
-    short = toks[:, :S_dec]
-    pre = make_prefill_step(cfg, Impl(), dtype=torch.float32)(
-        params, {"tokens": short})[:, 0, :V]
-    st = init_decode_state(cfg, B, S_dec, dtype=torch.float32, device="cuda")
+    short = {"tokens": toks[:, :S_dec]}            # text: decode has no vision prefix
+    kw = {}
+    if cfg.enc_dec:
+        short["frames"] = batch["frames"]
+        with torch.no_grad():
+            kw = dict(params=params, enc_out=encode(cfg, params, batch["frames"]))
+    pre = make_prefill_step(cfg, Impl(), dtype=torch.float32)(params, short)[:, 0, :V]
+    short = short["tokens"]
+    st = init_decode_state(cfg, B, S_dec, dtype=torch.float32, device="cuda", **kw)
     for t in range(S_dec):
         lg, st = decode_step(cfg, params, st, short[:, t:t + 1], impl=Impl(),
                              dtype=torch.float32)
@@ -1310,6 +1544,7 @@ def phase_prefill_parity(cfg, B=2, S=160, S_dec=16):
           f"{cfg.name}: prefill and decode disagree (max err {dec_err})")
     emit(phase="parity_prefill", arch=cfg.name, layers=cfg.num_layers,
          dtype="float32", batch=B, prompt_len=S, window=cfg.swa_window,
+         vision_tokens=cfg.vision_tokens or None, frames=cfg.enc_ctx or None,
          kernel_vs_plain_max_abs=kern_err,
          argmax_identical=bool(same.all()), near_ties=int((~decided).sum()),
          decode_prompt_len=S_dec, prefill_vs_decode_max_abs=dec_err,
@@ -1459,7 +1694,10 @@ def kernels_line(cfg, launches, err, attn_inputs):
         split_plan=da.split_plan(B, S, Hkv, da._slots(0, q.dtype, Dh, H // Hkv)),
         at_full_cache=decode_at(gen, B, 1024, H, Hkv, Dh, layers=cfg.num_layers),
         at_qwen3_cache=decode_at(gen, B, 1024, 40, 8, 128, layers=40),
-        at_long_cache=decode_at(gen, B, 16384, H, Hkv, Dh, layers=1))
+        at_long_cache=decode_at(gen, B, 16384, H, Hkv, Dh, layers=1),
+        at_whisper_cross_cache=decode_at(gen, 8, 1500, 6, 6, 64, layers=4, causal=False),
+        at_llava_ring=decode_at(gen, 8, 4096, 32, 8, 128, layers=32, window=4096,
+                                ring=True))
     del q, k, v, attn_inputs
     torch.cuda.empty_cache()
     rows.append(flash_row(gen, launches, err))
@@ -1489,33 +1727,47 @@ def cold_ms(fn, inputs, iters):
     return cuda_ms(lambda: [c() for c in calls], iters) / len(calls)
 
 
-def decode_at(gen, B, S, H, Hkv, Dh, layers):
+def decode_at(gen, B, S, H, Hkv, Dh, layers, causal=True, window=None, ring=False):
     """Decode attention over ``layers`` distinct (B, S, Hkv, Dh) bf16 caches
     with every row valid, called in turn as a decode tick calls its layers:
     with 16 layers of (8, 1024, 8, 64) (268 MB), 40 of (8, 1024, 8, 128)
-    (1.34 GB, qwen3-14b's) or one (8, 16384, 8, 64) cache (268 MB) each
-    call finds its cache cold in L2. Eager, graph replay
-    (one capture of a pass over the layers), the earlier design, SDPA, the
-    byte bound; the first layer against the plain version (2e-2)."""
+    (1.34 GB, qwen3-14b's), one (8, 16384, 8, 64) cache (268 MB), whisper's
+    4 cross caches of (8, 1500, 6, 64) (non-causal) or llava's 32 full
+    rings of (8, 4096, 8, 128) (4.3 GB; positions rotated through the slots
+    as a wrapped ring holds them, every one inside the window) each call
+    finds its cache cold in L2 (whisper's 74 MB only partly). Eager, graph
+    replay (one capture of a pass over the layers), the earlier design,
+    SDPA, the byte bound; the first layer against the plain version
+    (2e-2)."""
     from repro_torch.kernels import decode_attention as da
     q = torch.randn((B, 1, H, Dh), generator=gen, device="cuda").to(torch.bfloat16)
     caches = [tuple(torch.randn((B, S, Hkv, Dh), generator=gen, device="cuda")
                     .to(torch.bfloat16) for _ in range(2)) for _ in range(layers)]
-    kp = torch.arange(S, dtype=torch.int32, device="cuda")[None].repeat(B, 1)
-    qp = torch.full((B, 1), S - 1, dtype=torch.int32, device="cuda")
+    ar = torch.arange(S, device="cuda")
+    if ring:
+        kp = ((ar + 7 * S // 10) % S + 5000).to(torch.int32)[None].repeat(B, 1)
+        qp = torch.full((B, 1), 5000 + S - 1, dtype=torch.int32, device="cuda")
+    else:
+        kp = ar.to(torch.int32)[None].repeat(B, 1)
+        qp = torch.full((B, 1), S - 1, dtype=torch.int32, device="cuda")
+    mode = dict(causal=causal, window=window)
     k0, v0 = caches[0]
-    e = (da.decode_attention_cuda(q, k0, v0, qp, kp).float()
-         - da.decode_attention_plain(q, k0, v0, qp, kp).float()).abs().max().item()
-    check(e <= 2e-2, f"decode_attention at ({B}, {S}): max err {e}")
-    calls = [lambda k=k, v=v: da.decode_attention_cuda(q, k, v, qp, kp) for k, v in caches]
-    earlier = [lambda k=k, v=v: da._decode_attention_split_merge(q, k, v, qp, kp)
+    e = (da.decode_attention_cuda(q, k0, v0, qp, kp, **mode).float()
+         - da.decode_attention_plain(q, k0, v0, qp, kp, **mode).float()).abs().max().item()
+    check(e <= 2e-2, f"decode_attention at ({B}, {S}), causal {causal}, window "
+          f"{window}, ring {ring}: max err {e}")
+    calls = [lambda k=k, v=v: da.decode_attention_cuda(q, k, v, qp, kp, **mode)
+             for k, v in caches]
+    earlier = [lambda k=k, v=v: da._decode_attention_split_merge(q, k, v, qp, kp, **mode)
                for k, v in caches]
     per_pass = max(1, 32 // layers)      # 2 passes over 16 layers, 1 over 40, or 32 calls
     calls, earlier = calls * per_pass, earlier * per_pass
     b_ms, by = bound(2 * B * S * Hkv * Dh * 2 + 2 * q.numel() * 2 + kp.numel() * 4 + B * 4,
                      4 * H * Dh * B * S, "bf16")
+    what = ("causal" if causal else "non-causal") + (f", window {window}" if window else "") \
+        + (", ring positions" if ring else "")
     out = dict(shape=f"q ({B}, 1, {H}, {Dh}) bf16 over {layers} x ({B}, {S}, {Hkv}, {Dh})"
-                     f" bf16 caches, every row valid, in turn",
+                     f" bf16 caches, every row valid, {what}, in turn",
                ms=cuda_ms(lambda: [c() for c in calls], 10) / len(calls),
                graph_ms=graph_ms(calls),
                earlier_ms=cuda_ms(lambda: [c() for c in earlier], 3) / len(earlier),
@@ -1589,28 +1841,35 @@ def flash_row(gen, launches, err):
     row["at_dh80"] = flash_at(gen, 4, 2048, 32, 32, 80)
     row["at_qwen3"] = flash_at(gen, 4, 2048, 40, 8, 128)
     row["at_mixtral"] = flash_at(gen, 2, 6144, 32, 8, 128, window=4096)
+    row["at_whisper_enc"] = flash_at(gen, 8, 1500, 6, 6, 64, causal=False)
+    row["at_whisper_cross"] = flash_at(gen, 8, 1500, 6, 6, 64, Sq=448, causal=False)
     return row
 
 
-def flash_at(gen, B, S, H, Hkv, Dh, window=None):
-    """The forward over B prompts of S tokens, H query heads over Hkv kv
-    heads of Dh, causal (within ``window`` if given), bf16: zamba2-2.7b's
-    attention (Dh 80, MHA), qwen3-14b's prefill, mixtral-8x7b's past its
-    window. ms, plain ms, the bound from this run's valid pairs, SDPA
-    (``is_causal``, or the same pairs as a boolean mask) and the error
-    against the plain version."""
+def flash_at(gen, B, S, H, Hkv, Dh, window=None, Sq=None, causal=True):
+    """The forward over B rows of ``Sq`` queries (default S) at the last
+    positions of S keys, H query heads over Hkv kv heads of Dh, causal
+    (within ``window`` if given) or not, bf16: zamba2-2.7b's attention
+    (Dh 80, MHA), qwen3-14b's prefill, mixtral-8x7b's past its window,
+    whisper-tiny's encoder (non-causal) and cross-attention (448 queries
+    over 1500 frames). ms, plain ms, the bound from this run's valid pairs,
+    SDPA (``is_causal``, no mask when non-causal, or the same pairs as a
+    boolean mask) and the error against the plain version."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    q, k, v, qp, kp = flash_inputs(gen, B, S, S, H, Hkv, Dh, torch.bfloat16, tail=0)
-    ok = (kp[:, None, :] <= qp[:, :, None]) & (kp[:, None, :] >= 0)
+    Sq = Sq or S
+    q, k, v, qp, kp = flash_inputs(gen, B, Sq, S, H, Hkv, Dh, torch.bfloat16, tail=0)
+    ok = (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)        # (B, Sq, S)
+    if causal:
+        ok = ok & (kp[:, None, :] <= qp[:, :, None])
     if window is not None:
         ok &= (qp[:, :, None] - kp[:, None, :]) < window
     pairs = int(ok.sum())
-    e = (fa.flash_attention_cuda(q, k, v, qp, kp, window=window).float()
-         - fa.flash_attention_plain(q, k, v, qp, kp, window=window).float()
-         ).abs().max().item()
-    check(e <= 2e-2, f"flash_attention at ({B}, {S}, {H}/{Hkv}, {Dh}), window "
-          f"{window}: max err {e}")
+    args = dict(causal=causal, window=window)
+    e = (fa.flash_attention_cuda(q, k, v, qp, kp, **args).float()
+         - fa.flash_attention_plain(q, k, v, qp, kp, **args).float()).abs().max().item()
+    check(e <= 2e-2, f"flash_attention at ({B}, {Sq} over {S}, {H}/{Hkv}, {Dh}), "
+          f"causal {causal}, window {window}: max err {e}")
     b_ms, by = bound(2 * (q.numel() + k.numel()) * 2 + (qp.numel() + kp.numel()) * 4,
                      4 * Dh * H * pairs, "bf16")
     qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -1618,14 +1877,14 @@ def flash_at(gen, B, S, H, Hkv, Dh, window=None):
 
     def library():
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                              is_causal=mask is None,
+                                              is_causal=causal and mask is None,
                                               enable_gqa=H != Hkv)
-    return dict(shape=f"q ({B}, {S}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
-                      f"causal" + (f", window {window}" if window else ""),
-                ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, qp, kp,
-                                                           window=window), 20),
+    what = "causal" if causal else "non-causal"
+    return dict(shape=f"q ({B}, {Sq}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
+                      f"{what}" + (f", window {window}" if window else ""),
+                ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, qp, kp, **args), 20),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, qp, kp,
-                                                                  window=window), 2),
+                                                                  **args), 2),
                 bound_ms=b_ms, bound_by=by, valid_pairs=pairs, max_abs_err=e,
                 library_ms=cuda_ms(library, 20))
 
@@ -1633,22 +1892,26 @@ def flash_at(gen, B, S, H, Hkv, Dh, window=None):
 FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma")
 
 
-def flash_bwd_case(gen, B, S, H, Hkv, Dh):
-    """Causal bf16 inputs of the backward at (B, S, H/Hkv, Dh), the forward
-    kernel's output and log-sum-exp, a random dO; the valid pairs, the
-    bound's bytes and SDPA's backward on the same q, k, v and dO (its
-    forward outside the timing)."""
+def flash_bwd_case(gen, B, S, H, Hkv, Dh, Sq=None, causal=True):
+    """bf16 inputs of the backward at (B, Sq over S, H/Hkv, Dh), causal or
+    not, the forward kernel's output and log-sum-exp, a random dO; the
+    valid pairs, the bound's bytes and SDPA's backward on the same q, k, v
+    and dO (its forward outside the timing)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    q, k, v, qp, kp = flash_inputs(gen, B, S, S, H, Hkv, Dh, torch.bfloat16, tail=0)
-    out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, return_lse=True)
+    Sq = Sq or S
+    q, k, v, qp, kp = flash_inputs(gen, B, Sq, S, H, Hkv, Dh, torch.bfloat16, tail=0)
+    out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, causal=causal, return_lse=True)
     dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
     args = (q, k, v, out, lse, dout, qp, kp)
-    pairs = int(((kp[:, None, :] <= qp[:, :, None]) & (kp[:, None, :] >= 0)).sum())
+    ok = (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)        # (B, Sq, S)
+    if causal:
+        ok = ok & (kp[:, None, :] <= qp[:, :, None])
+    pairs = int(ok.sum())
     nbytes = (2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
               + 4 * (qp.numel() + kp.numel()))
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-    ref = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=H != Hkv)
+    ref = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=H != Hkv)
     douts = dout.transpose(1, 2)
     lib = cuda_ms(lambda: torch.autograd.grad(ref, (qs, ks, vs), douts, retain_graph=True),
                   20)
@@ -1689,31 +1952,38 @@ def flash_bwd_row(gen, launches, err):
     del args
     row["at_dh80"] = flash_bwd_at(gen, 1, 2048, 32, 32, 80)
     row["at_olmo"] = flash_bwd_at(gen, 2, 2048, 16, 16, 128)
+    row["at_whisper_cross"] = flash_bwd_at(gen, 2, 1500, 6, 6, 64, Sq=448, causal=False)
     return row
 
 
-def flash_bwd_at(gen, B, S, H, Hkv, Dh):
-    """The backward at another training shape, causal, bf16: zamba2-2.7b's
+def flash_bwd_at(gen, B, S, H, Hkv, Dh, Sq=None, causal=True):
+    """The backward at another training shape, bf16: zamba2-2.7b's
     attention (Dh 80, 32 heads, MHA, its microbatch of 1 x 2048), olmo-1b's
-    (Dh 128, 16 heads, MHA, 2 x 2048). ms, earlier ms, pass ms, bound,
-    SDPA's backward and the error against the plain version."""
+    (Dh 128, 16 heads, MHA, 2 x 2048), both causal; whisper-tiny's
+    cross-attention (448 queries over 1500 frames, 6 heads of 64, its
+    microbatch of 2), non-causal. ms, earlier ms, pass ms, bound, SDPA's
+    backward and the error against the plain version."""
     from repro_torch.kernels import flash_attention as fa
-    args, pairs, nbytes, lib = flash_bwd_case(gen, B, S, H, Hkv, Dh)
-    got = fa.flash_attention_bwd_cuda(*args)
-    want = fa.flash_attention_bwd_plain(*args)
+    Sq = Sq or S
+    args, pairs, nbytes, lib = flash_bwd_case(gen, B, S, H, Hkv, Dh, Sq, causal)
+    mode = dict(causal=causal)
+    got = fa.flash_attention_bwd_cuda(*args, **mode)
+    want = fa.flash_attention_bwd_plain(*args, **mode)
     e = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
     excess = max(((g.float() - w.float()).abs() - 2e-2 * (1 + w.float().abs())).max().item()
                  for g, w in zip(got, want))
-    check(excess <= 0, f"flash_attention_bwd at ({B}, {S}, {H}/{Hkv}, {Dh}): over "
-          f"tolerance by {excess}")
+    check(excess <= 0, f"flash_attention_bwd at ({B}, {Sq} over {S}, {H}/{Hkv}, {Dh}), "
+          f"causal {causal}: over tolerance by {excess}")
     b_ms, by = bound(nbytes, 10 * Dh * H * pairs, "bf16")
-    return dict(shape=f"q ({B}, {S}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
-                      f"causal, dO, lse",
-                ms=cuda_ms(lambda: fa.flash_attention_bwd_cuda(*args), 20),
-                earlier_ms=cuda_ms(lambda: fa._flash_attention_bwd_mma_sync(*args), 10),
-                pass_ms=short_names(kernel_ms(lambda: fa.flash_attention_bwd_cuda(*args)),
-                                    FLASH_BWD_KERNELS),
-                plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), 2),
+    what = "causal" if causal else "non-causal"
+    return dict(shape=f"q ({B}, {Sq}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
+                      f"{what}, dO, lse",
+                ms=cuda_ms(lambda: fa.flash_attention_bwd_cuda(*args, **mode), 20),
+                earlier_ms=cuda_ms(lambda: fa._flash_attention_bwd_mma_sync(
+                    *args, **mode), 10),
+                pass_ms=short_names(kernel_ms(lambda: fa.flash_attention_bwd_cuda(
+                    *args, **mode)), FLASH_BWD_KERNELS),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(*args, **mode), 2),
                 bound_ms=b_ms, bound_by=by, max_abs_err=e, library_ms=lib)
 
 
@@ -1812,6 +2082,7 @@ def main():
         "llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b", "olmo-1b", "smollm-360m",
         "qwen3-14b"))
     mixtral = replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS)
+    whisper, llava = get_config("whisper-tiny"), get_config("llava-next-mistral-7b")
     launches = {}                            # summed over the main-path runs
 
     def add(counts):
@@ -1821,28 +2092,36 @@ def main():
     for cfg in (llama, mamba, zamba, olmo, smollm, qwen3):
         add(phase_prefill(cfg))
     add(phase_prefill(mixtral, B=2, S=6144))
+    add(phase_prefill(llava, B=2, S=6144))
+    add(phase_prefill(whisper, B=8, S=WHISPER_TEXT))
     add(phase_padded(smollm, SMOLLM_PADS))
     counts, attn_inputs = phase_serve(llama)
     add(counts)
-    for cfg in (mamba, zamba, olmo, smollm, qwen3, mixtral):
+    for cfg in (mamba, zamba, olmo, smollm, qwen3, mixtral, llava):
         add(phase_serve(cfg, n_clients=8)[0])
+    add(phase_decode(whisper, B=8, max_seq=WHISPER_TEXT))
+    add(phase_decode(llava, B=8, max_seq=32768))
+    add(phase_ring_parity(replace(llava, num_layers=2)))
     add(phase_train(llama))
     add(phase_train(mamba))
     add(phase_train(zamba, micro=ZAMBA_MICRO))
     add(phase_train(olmo))
     add(phase_train(smollm))
+    add(phase_train(whisper, seq=WHISPER_TEXT))
     kernels = kernels_line(llama, launches, err, attn_inputs)
     del attn_inputs
     torch.cuda.empty_cache()
     phase_grad_parity(llama)
     phase_grad_parity(mamba)
     phase_grad_parity(olmo)
+    phase_grad_parity(whisper, S=WHISPER_TEXT)
     phase_parity(llama)
-    for cfg in (llama, mamba, zamba):
+    for cfg in (llama, mamba, zamba, whisper):
         phase_prefill_parity(cfg)
     for cfg in (olmo, smollm, qwen3):
         phase_prefill_parity(replace(cfg, num_layers=2))
     phase_prefill_parity(replace(mixtral, num_layers=2), B=1, S=4224)
+    phase_prefill_parity(replace(llava, num_layers=2), B=1, S=4224)
     emit(phase="done", wall_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

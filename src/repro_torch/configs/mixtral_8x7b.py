@@ -2,9 +2,8 @@
 
 32 layers, d_model 4096, 32 query heads (head_dim 128), 8 KV heads,
 8 experts x d_ff 14336 with top-2 routing, vocab 32000, SWA window 4096.
-SWA → sub-quadratic → long_500k runs with a ring KV cache in the JAX
-package; the port has no ring cache yet, so its decode state raises for a
-``max_seq`` past the window (a dense cache serves up to it).
+SWA → sub-quadratic: a decode state whose ``max_seq`` passes the window
+is a ring KV cache of 4096 slots (a dense cache serves up to it).
 The EP all_to_all dispatch is the paper-representative MPKLink channel.
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` → ModelConfig (full + reduced smoke).
 
-The dense, MoE, SSM and hybrid architectures of ``repro.configs.registry``
-are registered. whisper-tiny (encoder-decoder) and llava-next-mistral-7b
-(vision tokens) join as their families are ported; grok-1-314b is here
-for its reduced config (its bf16 weights fit no card).
+All ten architectures of ``repro.configs.registry``: the dense, MoE, SSM,
+hybrid, encoder-decoder (whisper-tiny) and VLM (llava-next-mistral-7b)
+families. grok-1-314b is here for its reduced config (its bf16 weights
+fit no card).
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "grok-1-314b": "repro_torch.configs.grok1_314b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
 }
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)

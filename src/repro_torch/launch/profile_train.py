@@ -1,14 +1,15 @@
 """Where a training step's time goes, on the GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \
-      [--arch mamba2-1.3b] [--micro 1] [--trace out.json]
+      [--arch mamba2-1.3b] [--micro 1] [--seq 2048] [--trace out.json]
 
 One ``make_train_step`` at the shape ``chip_smoke.py`` trains: ``--arch``
 (default llama3.2-1b) at full width and depth, f32 parameters and AdamW
-moments, bf16 compute, a global batch of 8 x 2048 tokens in microbatches
-of ``--micro`` (default 2; chip_smoke trains zamba2-2.7b at 1), on the
-synthetic stream (random weights from seed 0). After two warm-up steps it
-reports as JSON lines:
+moments, bf16 compute, a global batch of 8 x ``--seq`` tokens (default
+2048; chip_smoke trains whisper-tiny at 448, over 1500 frames a row) in
+microbatches of ``--micro`` (default 2; chip_smoke trains zamba2-2.7b at
+1), on the synthetic stream (random weights from seed 0). After two
+warm-up steps it reports as JSON lines:
 
 * ``step``   — host-clock ms per step over 3 steps, tokens/s, peak memory;
 * ``device`` — one more step under ``torch.profiler``: the device's busy
@@ -61,6 +62,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b", choices=list(ARCH_IDS))
     ap.add_argument("--micro", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=SEQ)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
 
@@ -72,7 +74,7 @@ def main(argv=None):
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     opt = init_opt_state(params)
     step = make_train_step(cfg, tcfg)
-    data = SyntheticDataset(cfg, SEQ, seed=0)
+    data = SyntheticDataset(cfg, args.seq, seed=0)
     batches = [to_device(data.batch(i, BATCH), dev) for i in range(STEPS + 3)]
     for b in batches[:2]:                                # warm-up
         step(params, opt, b)
@@ -89,9 +91,9 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(json.dumps({"phase": "step", "arch": cfg.name, "nvidia_smi": smi,
-                      "global_batch": BATCH, "seq_len": SEQ, "microbatch": args.micro,
-                      "steps": STEPS, "ms_per_step": step_ms,
-                      "tokens_per_s": BATCH * SEQ / step_ms * 1e3,
+                      "global_batch": BATCH, "seq_len": args.seq,
+                      "microbatch": args.micro, "steps": STEPS, "ms_per_step": step_ms,
+                      "tokens_per_s": BATCH * args.seq / step_ms * 1e3,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}),
           flush=True)
 

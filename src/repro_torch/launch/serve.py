@@ -5,10 +5,13 @@ the GPU by default.
 
 Weights are random, drawn from seed 0, in bfloat16. ``--device cpu`` runs
 the plain versions of the kernels. ``--max-seq`` defaults to 96, or to the
-sliding window where the model's is shorter (a longer context needs a ring
-cache, which the port does not have yet). A model whose bf16 weights exceed
-the card's memory is refused with the sizes (mixtral-8x7b at all 32 layers,
-grok-1-314b).
+sliding window where the model's is shorter: the engine's slots decode at
+positions of their own, which a ring cache (past the window) cannot hold.
+llava-next-mistral-7b is served on text prompts. A model whose bf16
+weights exceed the card's memory is refused with the sizes (mixtral-8x7b
+at all 32 layers, grok-1-314b), and what the engine refuses is refused
+with its reason: a ``--max-seq`` past the window, or an encoder-decoder
+(whisper-tiny decodes through ``runtime.steps.make_decode_step``).
 """
 from __future__ import annotations
 
@@ -46,8 +49,11 @@ def main(argv=None):
         ap.error(str(e))
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dtype=dtype)
-    eng = ServingEngine(cfg, params, max_batch=args.max_batch,
-                        max_seq=max_seq, dtype=dtype, device=dev)
+    try:
+        eng = ServingEngine(cfg, params, max_batch=args.max_batch,
+                            max_seq=max_seq, dtype=dtype, device=dev)
+    except ValueError as e:             # what the engine does not serve
+        ap.error(str(e))
 
     ops.LAUNCHES.reset()
     t0 = time.perf_counter()

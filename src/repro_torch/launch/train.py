@@ -10,10 +10,12 @@ failure injection, straggler telemetry), on the GPU by default.
 over f32 parameters and moments (on the card: flash attention's and the SSD
 scan's forward and backward kernels in every layer); without it, the
 reduced twin in f32. Weights are random, drawn from ``--seed``; the data is
-``SyntheticDataset``. A model whose f32 parameters, gradients and two AdamW
-moments (16 bytes a parameter) exceed the card's memory is refused with
-the sizes (qwen3-14b, mixtral-8x7b, grok-1-314b: they need the multi-device
-fabric).
+``SyntheticDataset`` (with a VLM's patch embeddings and an
+encoder-decoder's frames: whisper-tiny trains on 1500 frames a row). A
+model whose f32 parameters, gradients and two AdamW moments (16 bytes a
+parameter) exceed the card's memory is refused with the sizes (qwen3-14b,
+mixtral-8x7b, grok-1-314b, llava-next-mistral-7b: they need the
+multi-device fabric).
 """
 from __future__ import annotations
 

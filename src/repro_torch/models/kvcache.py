@@ -1,8 +1,10 @@
-"""Decode state for serving: dense KV caches and the SSM recurrent state
-(the port of that subset of ``repro.models.kvcache``).
+"""Decode state for serving: dense KV caches, sliding-window ring caches and
+the SSM recurrent state (the port of ``repro.models.kvcache``).
 
-A layer's cache is ``{"k", "v"}`` of (B, S_max, H_kv, Dh), or for the SSM
-family ``{"ssd", "conv"}``; a stack's caches carry a leading L axis.
+A layer's cache is ``{"k", "v"}`` of (B, S_max, H_kv, Dh); a ring cache
+adds ``"slot_pos"`` (W,), the absolute position each of its W slots holds
+(-1: empty); the SSM family's is ``{"ssd", "conv"}``. A stack's caches
+carry a leading L axis, as the reference's ``stack_caches`` makes them.
 Inserts write IN PLACE into the given tensors (the reference returns new
 arrays) and return the same dict.
 
@@ -60,6 +62,29 @@ def dense_cache_insert_rows(cache: dict, k_new, v_new, pos_b) -> dict:
     at = pos_b.to(torch.int64).clamp(0, s_max - 1)
     cache["k"][rows, at] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][rows, at] = v_new[:, 0].to(cache["v"].dtype)
+    return cache
+
+
+def init_ring_cache(n_layers: int, batch: int, window: int, n_kv: int,
+                    head_dim: int, dtype, device) -> dict:
+    """Empty ring caches of a layer stack: {"k", "v"} of (L, B, W, H_kv,
+    Dh) zeroed and "slot_pos" (L, W) int32 filled with -1."""
+    shape = (n_layers, batch, window, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "slot_pos": torch.full((n_layers, window), -1, dtype=torch.int32,
+                                   device=device)}
+
+
+def ring_cache_insert(cache: dict, k_new, v_new, pos: int) -> dict:
+    """Insert one token (B, 1, H, D) at absolute position ``pos`` (in
+    place): slot ``pos % W`` takes its K/V and ``slot_pos[slot] = pos``.
+    ``pos`` is one scalar for the whole batch, as in the reference; the
+    slot is computed on the host, so the insert does not sync."""
+    slot = int(pos) % cache["k"].shape[1]
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    cache["slot_pos"][slot] = int(pos)
     return cache
 
 

@@ -1,10 +1,12 @@
-"""Blocks and layer stacks for the dense, MoE, SSM and hybrid families (the
-port of that subset of ``repro.models.transformer``).
+"""Blocks and layer stacks of every family (the port of
+``repro.models.transformer``).
 
-  dense  : [attn → ffn] × L
-  moe    : [attn → moe-ffn] × L (aux losses summed over the layers)
-  ssm    : [mamba2] × L
-  hybrid : ([mamba2] × attn_every → shared attn/ffn block) × (L / attn_every)
+  dense/vlm : [attn → ffn] × L
+  moe       : [attn → moe-ffn] × L (aux losses summed over the layers)
+  ssm       : [mamba2] × L
+  hybrid    : ([mamba2] × attn_every → shared attn/ffn block) × (L / attn_every)
+  audio     : encoder [attn → ffn] × Le (non-causal, no RoPE),
+              decoder [self → cross → ffn] × L (no RoPE)
 
 Layer parameters are stacked on a leading L axis, as the reference's
 ``init_stack`` produces them; the hybrid family's attention block is one
@@ -49,16 +51,16 @@ class Impl:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a configuration whose family the port does not run yet
-    (encoder-decoder, vision tokens, a hybrid without a shared block).
-    A sliding window is admitted: the full-sequence stacks apply it, and
-    ``model.init_decode_state`` raises where a decode state would need a
-    ring cache."""
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.enc_dec
-            or cfg.vision_tokens or (cfg.family == "hybrid" and not cfg.shared_attn)):
+    """Raise for a configuration the port does not run: a family outside
+    the reference's ten architectures' (dense, vlm, moe, ssm, audio
+    encoder-decoder, shared-attention hybrid), or a hybrid without a
+    shared block."""
+    if (cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+            or (cfg.family == "hybrid" and not cfg.shared_attn)
+            or cfg.enc_dec != (cfg.family == "audio")):
         raise NotImplementedError(
-            f"{cfg.name}: only dense, MoE, SSM and shared-attention hybrid "
-            f"models are ported yet")
+            f"{cfg.name}: the port runs the dense, VLM, MoE, SSM, "
+            f"encoder-decoder and shared-attention hybrid families")
 
 
 def zero_aux(cfg: ModelConfig, device) -> dict:
@@ -79,9 +81,10 @@ def init_stack(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
     reference's ``init_stack`` (dense and moe: ln1, attn {wq, wk, wv, wo
     [, q_norm, k_norm]}, ln2, ffn {up, down, gate} or {router, gate, up,
     down}; ssm and hybrid: ln1, mamba). Norms are ``layers.init_norm``'s:
-    empty for np_layernorm."""
+    empty for np_layernorm. An encoder-decoder's encoder is such a stack
+    of attention blocks."""
     check_ported(cfg)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family not in ("ssm", "hybrid"):
         return _init_attn_blocks(cfg, gen, n_layers, dtype)
     return {"ln1": init_norm(cfg, (n_layers,), dtype, gen.device),
             "mamba": ssm_mod.init_mamba_stack(cfg, gen, n_layers, dtype)}
@@ -137,6 +140,18 @@ def _init_attn_blocks(cfg: ModelConfig, gen: torch.Generator, L: int, dtype) -> 
             "ln2": init_norm(cfg, (L,), dtype, gen.device), "ffn": ffn}
 
 
+def init_dec_stack(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
+                   dtype=torch.float32) -> dict:
+    """``n_layers`` decoder blocks of an encoder-decoder stacked on a
+    leading L axis: the tree of the reference's ``init_dec_block`` (ln1,
+    attn, ln2, cross, ln3, ffn; ``cross`` is an attention block of its
+    own)."""
+    p = _init_attn_blocks(cfg, gen, n_layers, dtype)
+    p["cross"] = _init_attn(cfg, gen, n_layers, dtype)
+    p["ln3"] = init_norm(cfg, (n_layers,), dtype, gen.device)
+    return p
+
+
 def layer(stacked: dict, i: int) -> dict:
     """Layer ``i`` of a stacked parameter tree (views)."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
@@ -181,27 +196,34 @@ def _ffn(cfg: ModelConfig, p, h):
     return apply_mlp(cfg, p, h), {}
 
 
-def _attn_block(cfg: ModelConfig, p, x, *, positions, impl: Impl):
+def _attn_block(cfg: ModelConfig, p, x, *, positions, impl: Impl,
+                causal: bool = True, use_rope: bool = True):
     h = attn_mod.apply_attn(cfg, p["attn"], apply_norm(cfg, p["ln1"], x),
-                            positions=positions, impl=impl.attention)
+                            positions=positions, causal=causal, use_rope=use_rope,
+                            impl=impl.attention)
     x = x + h
     h, aux = _ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
     return x + h, aux
 
 
-def apply_block(cfg: ModelConfig, p, x, *, positions, impl: Impl):
-    """Full-sequence block (causal, RoPE) → (x, aux)."""
+def apply_block(cfg: ModelConfig, p, x, *, positions, impl: Impl,
+                causal: bool = True, use_rope: bool = True):
+    """Full-sequence block → (x, aux); an attention block is causal with
+    RoPE unless told otherwise (an encoder's is neither)."""
     if cfg.family == "ssm":
         return _mamba_block(cfg, p, x, impl=impl), {}
-    return _attn_block(cfg, p, x, positions=positions, impl=impl)
+    return _attn_block(cfg, p, x, positions=positions, impl=impl, causal=causal,
+                       use_rope=use_rope)
 
 
-def apply_stack(cfg: ModelConfig, stacked, x, *, positions, impl: Impl):
+def apply_stack(cfg: ModelConfig, stacked, x, *, positions, impl: Impl,
+                causal: bool = True, use_rope: bool = True):
     """Walk the layer stack over a whole sequence → (x, aux summed over the
     layers)."""
     aux = zero_aux(cfg, x.device)
     for p in layers(stacked):
-        x, aux_l = apply_block(cfg, p, x, positions=positions, impl=impl)
+        x, aux_l = apply_block(cfg, p, x, positions=positions, impl=impl,
+                               causal=causal, use_rope=use_rope)
         aux = _add_aux(aux, aux_l)
     return x, aux
 
@@ -278,4 +300,61 @@ def decode_hybrid_stack(cfg: ModelConfig, mamba_stack, shared_block, caches, x,
         if (i + 1) % every == 0:
             seg = {k: c[i // every] for k, c in caches["attn"].items()}
             x, _ = _decode_attn_block(cfg, shared_block, x, seg, pos, impl=impl)
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+
+def apply_dec_block(cfg: ModelConfig, p, x, enc_out, enc_pos, *, positions,
+                    impl: Impl):
+    """A decoder block over the whole sequence: causal self-attention
+    without RoPE, cross-attention over ``enc_out``, the MLP."""
+    h = attn_mod.apply_attn(cfg, p["attn"], apply_norm(cfg, p["ln1"], x),
+                            positions=positions, causal=True, use_rope=False,
+                            impl=impl.attention)
+    x = x + h
+    h = attn_mod.apply_cross_attn(cfg, p["cross"], apply_norm(cfg, p["ln2"], x),
+                                  enc_out, enc_pos, impl=impl.attention)
+    x = x + h
+    return x + apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["ln3"], x))
+
+
+def apply_dec_stack(cfg: ModelConfig, stacked, x, enc_out, *, positions,
+                    impl: Impl):
+    """Walk the decoder stack over a whole sequence against the encoder's
+    output (B, Se, D) → (x, aux (empty))."""
+    B, Se = enc_out.shape[:2]
+    enc_pos = torch.arange(Se, dtype=torch.int32, device=x.device)[None].expand(B, Se)
+    for p in layers(stacked):
+        x = apply_dec_block(cfg, p, x, enc_out, enc_pos, positions=positions,
+                            impl=impl)
+    return x, {}
+
+
+def decode_dec_block(cfg: ModelConfig, p, x, cache, pos, *, impl: Impl):
+    """One decoder block for one new token. ``cache`` = {"self": one
+    layer's dense cache (updated in place), "cross": its encoder K/V}."""
+    h, _ = attn_mod.decode_attn(cfg, p["attn"], apply_norm(cfg, p["ln1"], x),
+                                cache["self"], pos, use_rope=False,
+                                impl=impl.decode_attention)
+    x = x + h
+    h, _ = attn_mod.decode_attn(cfg, p["cross"], apply_norm(cfg, p["ln2"], x),
+                                cache["cross"], pos, cross=True,
+                                impl=impl.decode_attention)
+    x = x + h
+    x = x + apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["ln3"], x))
+    return x, cache
+
+
+def decode_dec_stack(cfg: ModelConfig, stacked, caches, x, pos, *, impl: Impl):
+    """One new token through the decoder stack. ``caches`` = {"self":
+    {"k", "v"} of (L, B, S, Hkv, Dh), "cross": {"k", "v"} of (L, B, Se,
+    Hkv, Dh)}; the self caches are updated in place."""
+    for i in range(num_layers(stacked)):
+        x, _ = decode_dec_block(
+            cfg, layer(stacked, i), x,
+            {part: {k: c[i] for k, c in caches[part].items()}
+             for part in ("self", "cross")}, pos, impl=impl)
     return x, caches

@@ -14,6 +14,11 @@ EOS/max_new.
 Each tick syncs with the host as the reference does: the sampled tokens go
 to numpy and every live slot's position is read back one by one.
 
+The engine refuses what the reference's cannot serve: a state past a
+sliding window (a ring cache takes one position for the whole batch, and
+resetting a slot's row would corrupt its slot positions) and an
+encoder-decoder model (whose state needs an encoder output per request).
+
 Sampling is greedy (the reference's ``greedy=False`` path is not ported).
 Nor are the replica-fleet helpers (``fleet_handler``,
 ``register_engine_fleet``): they fork service processes, and CUDA must not
@@ -66,6 +71,10 @@ class ServingEngine:
         if cfg.swa_window is not None and max_seq > cfg.swa_window:
             raise ValueError("ring caches need uniform positions; lower "
                              "max_seq or use a dense model")
+        if cfg.enc_dec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: its decode "
+                             f"state needs each request's encoder output; decode "
+                             f"it through runtime.steps.make_decode_step")
         self.device = resolve(device)
         self.cfg, self.params = cfg, params
         self.B, self.max_seq = max_batch, max_seq

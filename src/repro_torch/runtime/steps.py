@@ -22,7 +22,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, impl: Impl = Impl()):
     """→ train_step(params, opt_state, batch) → (params, opt_state, metrics).
 
-    The global batch (``batch["tokens"]`` / ``["labels"]``, (B, S)) is split
+    The global batch (``batch["tokens"]`` / ``["labels"]``, (B, S), and a
+    VLM's ``"vision_embeds"`` or an encoder-decoder's ``"frames"``) is split
     into B // micro microbatches of ``tcfg.microbatch_size`` rows (B must
     split evenly, as the reference's reshape demands); the gradients of
     each microbatch's loss (compute in ``tcfg.dtype``) are summed in f32
@@ -79,7 +80,9 @@ def make_prefill_step(cfg: ModelConfig, impl: Impl = Impl(),
                       dtype=torch.bfloat16):
     """Serving prefill: full-context forward, next-token logits only, under
     ``no_grad`` (a parameter that requires grad builds no graph).
-    → prefill_step(params, {"tokens": (B, S)}) → logits (B, 1, Vp) f32."""
+    → prefill_step(params, {"tokens": (B, S)[, "vision_embeds", "frames"]})
+    → logits (B, 1, Vp) f32; a VLM's patch embeddings and an
+    encoder-decoder's frames are carried to ``models.forward``."""
     @torch.no_grad()
     def prefill_step(params, batch):
         logits, _ = forward(cfg, params, batch, impl=impl, dtype=dtype,
@@ -91,7 +94,8 @@ def make_prefill_step(cfg: ModelConfig, impl: Impl = Impl(),
 def make_decode_step(cfg: ModelConfig, impl: Impl = Impl(),
                      dtype=torch.bfloat16):
     """Serving decode: one token through the cached stack, under
-    ``no_grad``.
+    ``no_grad`` (an encoder-decoder's state holds its cross K/V, built by
+    ``init_decode_state(..., params=, enc_out=)``).
     → serve_step(params, state, token (B, 1)) → (logits (B, 1, Vp), state)."""
     @torch.no_grad()
     def serve_step(params, state, token):

@@ -407,7 +407,7 @@ def test_window_runs_on_a_dense_cache():
     """A windowed dense model: the forward past the window equals the
     reference's, and a decode state up to the window is a dense cache
     (the engine's tokens equal the reference engine's); past the window
-    the state raises (ring caches are not ported)."""
+    the state is a ring cache of the window's slots."""
     jcfg = jreplace(jget_reduced("llama3.2-1b"), swa_window=16)
     cfg = replace(get_reduced("llama3.2-1b"), swa_window=16)
     jparams = jax.jit(lambda k: jinit_params(jcfg, k))(jax.random.PRNGKey(2))
@@ -421,8 +421,9 @@ def test_window_runs_on_a_dense_cache():
                                rtol=1e-4, atol=1e-4)
     st = init_decode_state(cfg, 2, 16, dtype=torch.float32, device="cpu")
     assert st["caches"]["k"].shape[2] == 16
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        init_decode_state(cfg, 2, 17, dtype=torch.float32, device="cpu")
+    ring = init_decode_state(cfg, 2, 17, dtype=torch.float32, device="cpu")["caches"]
+    assert ring["k"].shape == (cfg.num_layers, 2, 16, cfg.kv_heads_eff, cfg.head_dim)
+    assert ring["slot_pos"].shape == (cfg.num_layers, 16)
     got, want = _engine_tokens(cfg, tparams, jcfg, jparams, max_seq=16)
     assert got == want
 

@@ -291,16 +291,20 @@ def test_init_params_tree_matches_reference(arch):
 
 def test_decode_state_refuses_a_ring_cache():
     """A window needs no ring cache while max_seq fits in it; past it the
-    state raises (ring caches are not ported), as does the engine."""
+    state is a ring of the window's slots (mixtral's published 4096, at
+    one layer here), and the engine refuses it."""
     cfg = get_reduced("mixtral-8x7b")
     st = init_decode_state(cfg, 2, cfg.swa_window, dtype=torch.float32, device="cpu")
     assert st["caches"]["k"].shape == (2, 2, cfg.swa_window, 2, 16)
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        init_decode_state(cfg, 2, cfg.swa_window + 1, dtype=torch.float32,
-                          device="cpu")
-    full = get_config("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        init_decode_state(full, 1, 8192, dtype=torch.bfloat16, device="cpu")
+    ring = init_decode_state(cfg, 2, cfg.swa_window + 1, dtype=torch.float32,
+                             device="cpu")["caches"]
+    assert ring["k"].shape == ring["v"].shape == (2, 2, cfg.swa_window, 2, 16)
+    assert ring["slot_pos"].shape == (2, cfg.swa_window)
+    assert (ring["slot_pos"] == -1).all()
+    full = replace(get_config("mixtral-8x7b"), num_layers=1)
+    ring = init_decode_state(full, 1, 8192, dtype=torch.bfloat16, device="cpu")["caches"]
+    assert ring["k"].shape == (1, 1, 4096, 8, 128) and ring["k"].dtype == torch.bfloat16
+    assert ring["slot_pos"].shape == (1, 4096) and ring["slot_pos"].dtype == torch.int32
     params = init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="ring caches"):
         ServingEngine(cfg, params, max_batch=2, max_seq=cfg.swa_window + 1,
