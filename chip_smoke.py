@@ -31,6 +31,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              forward and backward kernels, a backward through the decode
              kernel raises, and 70,000 one-row frames go through
              ``framing.mac_batch`` bit for bit.
+   ipc     — ``launch.ipc_wordcount`` on the card: the paper's word count
+             through the port's six transports at 1e2 to 1e7 words (3
+             reps, median) and uds, mpklink and mpklink_opt at 1e8 (1 rep):
+             one line per transport and size (seconds, bytes, key syncs
+             and guard-kernel launches a request, ``os.cpu_count()``).
+             Every count exact, shm refusing >= 1e5 words with
+             CapacityError, key syncs and launches equal to what the code
+             gives (mpklink_opt <= 3 syncs), card-sealed regions equal to
+             the CPU's frames bit for bit and a tampered region refused;
+             claims 3 and 4 asserted, 1, 2 and 5 (timings) printed as
+             PASS/FAIL lines; then 1 and 16 concurrent mpklink_opt
+             sessions of 8 x 1e4 words through their rings (requests/s,
+             wakeups and key syncs a request, p50/p99 of a batch).
 3. prefill — ``runtime.steps.make_prefill_step`` at full width and depth
              (bf16, random weights from a seeded generator), 4 prompts of
              2048 tokens, for llama3.2-1b, mamba2-1.3b, zamba2-2.7b,
@@ -54,13 +67,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              model in f32 at full depth: identical argmax, max abs
              difference printed.
 4. serve   — llama3.2-1b at full width and depth (bf16), max_batch 8,
-             max_seq 1024: 12 concurrent lockstep clients and one batch
-             envelope of 8; then mamba2-1.3b, zamba2-2.7b, olmo-1b,
+             max_seq 1024: 12 concurrent sessions of the port's
+             ``MPKLinkOptTransport`` in front of ``EngineService.handler``
+             (2 key syncs a request) and one batch envelope of 8 on
+             ``serve_batch``, then a 100-word call's round trip through a
+             transport of its own with the engine idle and ticking; then
+             mamba2-1.3b, zamba2-2.7b, olmo-1b,
              smollm-360m, qwen3-14b, mixtral-8x7b (16 layers; max_seq
              1024 is inside its window, a dense cache) and
-             llava-next-mistral-7b the same way with 8 clients. Every
-             request and response is a sealed frame through the service
-             step; a tampered frame must be refused. The launch
+             llava-next-mistral-7b with 8 clients through the service
+             step (``serve_frame``). Every request and response is a
+             sealed frame; a tampered frame must be refused. The launch
              counts are zeroed just before and read just after; each kernel
              of the path must be > 0, and decode attention must launch once
              per attention block a tick.
@@ -100,8 +117,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              at a capacity factor of E / k, where neither path drops).
 
 Then a ``kernels`` JSON line (times from CUDA events, bounds from this
-run's inputs, launches summed over the prefill, serve, decode and train
-phases; the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
+run's inputs, launches summed over the ipc, prefill, serve, decode and
+train phases; the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
 replaced timed in this run, and the two backwards the design each replaced
 (flash: ``mma.sync``; SSD: the per-head chunk kernel, also
 ``earlier_pass_ms``); the four add ``kernels_per_call``, the kernel
@@ -1073,13 +1090,39 @@ def phase_padded(cfg, pads, B=4, S=2048):
     return launches
 
 
-def phase_serve(cfg, n_clients=12):
-    """The engine behind the service step at full width and depth (bf16):
-    lockstep clients, one batch envelope of 8, a tampered frame; decode
-    attention must launch once per attention block a tick. → (the launch
-    counts of that run, the layer-0 KV cache and positions of a dense model
-    or None)."""
+def _pcts(xs):
+    """(p50, p99) of ``xs`` in ms."""
+    xs = sorted(xs)
+    return xs[len(xs) // 2] * 1e3, xs[min(len(xs) - 1, int(0.99 * len(xs)))] * 1e3
+
+
+def small_call_ms(session, n=50, n_words=100):
+    """p50 and p99 ms of ``n`` lockstep word counts of ``n_words`` words
+    through ``session`` (each count checked after its timed round trip)."""
+    from repro_torch.core.wordcount import make_text, parse_count
+    text = make_text(n_words, seed=3)
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        resp = session.request(text)
+        ts.append(time.perf_counter() - t0)
+        check(parse_count(resp) == n_words, "a small word count came back wrong")
+    return _pcts(ts)
+
+
+def phase_serve(cfg, n_clients=12, sessions=False):
+    """The engine behind sealed frames at full width and depth (bf16):
+    lockstep clients, one batch envelope of 8 on ``serve_batch``, a
+    tampered frame; decode attention must launch once per attention block
+    a tick. With ``sessions`` the lockstep clients are sessions of the
+    port's ``MPKLinkOptTransport`` in front of ``EngineService.handler``
+    (two key syncs a request), and a small word count's round trip through
+    a transport of its own is timed with the engine idle and with it
+    ticking (outside the counted run); otherwise each client calls
+    ``serve_frame``. → (the launch counts of that run, the layer-0 KV
+    cache and positions of a dense model or None)."""
     from repro_torch.core import framing, transports
+    from repro_torch.core.wordcount import wordcount_handler
     from repro_torch.kernels import ops
     from repro_torch.runtime import EngineService, encode_prompt
 
@@ -1092,9 +1135,20 @@ def phase_serve(cfg, n_clients=12):
     prompts = [torch.randint(0, cfg.vocab_size, (8 + (40 * i) // 11,),
                              generator=rng).tolist() for i in range(n_clients)]
     results, errors = {}, []
+    tr = probe_tr = None
+    if sessions:
+        tr = transports.MPKLinkOptTransport(svc.handler, device="cuda",
+                                            max_keys=4 * n_clients, timeout=600)
+        conns = [tr.connect(f"client-{i}") for i in range(n_clients)]
+        probe_tr = transports.MPKLinkOptTransport(wordcount_handler, device="cuda")
+        probe = probe_tr.connect("probe")
 
     def client(i):          # one lockstep exchange: seal, serve, verify
         try:
+            if sessions:
+                resp = conns[i].request(encode_prompt(prompts[i], max_new))
+                results[i] = resp.view(torch.int32).cpu().tolist()
+                return
             frame = framing.build_frame(encode_prompt(prompts[i], max_new),
                                         seed=SEED, seq=i, device="cuda")
             resp = transports.serve_frame(frame, svc.handler, seed=SEED, seq=i)
@@ -1103,11 +1157,18 @@ def phase_serve(cfg, n_clients=12):
         except BaseException as e:
             errors.append(repr(e))
 
+    latency = None
     try:
         # warm-up exchange (library loads, first-call costs), not measured
-        warm = framing.build_frame(encode_prompt(prompts[0], 2), seed=SEED,
-                                   seq=999, device="cuda")
-        transports.serve_frame(warm, svc.handler, seed=SEED, seq=999)
+        if sessions:
+            conns[0].request(encode_prompt(prompts[0], 2))
+            small_call_ms(probe, n=5)
+            idle = small_call_ms(probe)
+            syncs0 = tr.sync_count
+        else:
+            warm = framing.build_frame(encode_prompt(prompts[0], 2), seed=SEED,
+                                       seq=999, device="cuda")
+            transports.serve_frame(warm, svc.handler, seed=SEED, seq=999)
         torch.cuda.synchronize()
         ops.LAUNCHES.reset()
         ticks0, t0 = eng.ticks, time.perf_counter()
@@ -1121,6 +1182,10 @@ def phase_serve(cfg, n_clients=12):
         torch.cuda.synchronize()
         lock_s, lock_ticks = time.perf_counter() - t0, eng.ticks - ticks0
         check(not errors, f"lockstep clients failed: {errors}")
+        if sessions:
+            check(tr.sync_count - syncs0 == 2 * n_clients,
+                  f"{tr.sync_count - syncs0} key syncs for {n_clients} requests, "
+                  f"want 2 a request")
 
         # one batch envelope of 8 through handler_batch
         reqs = [encode_prompt(p, max_new) for p in prompts[:8]]
@@ -1148,7 +1213,39 @@ def phase_serve(cfg, n_clients=12):
         torch.cuda.synchronize()
         launches = ops.LAUNCHES.snapshot()
         ticks = eng.ticks - ticks0
+        if sessions:        # the small call again, with the engine ticking
+            stop = threading.Event()
+
+            def load(i):
+                try:
+                    while not stop.is_set():
+                        conns[i].request(encode_prompt(prompts[i], max_new))
+                except BaseException as e:
+                    errors.append(repr(e))
+
+            loaders = [threading.Thread(target=load, args=(i,)) for i in range(8)]
+            for t in loaders:
+                t.start()
+            busy_by = time.perf_counter() + 300
+            while eng.ticks < ticks0 + ticks + 16 and not errors:   # busy
+                check(time.perf_counter() < busy_by, "the engine never got busy")
+                time.sleep(0.01)
+            ticks2, t2 = eng.ticks, time.perf_counter()
+            ticking = small_call_ms(probe)
+            ticks2, t2 = eng.ticks - ticks2, time.perf_counter() - t2
+            stop.set()
+            for t in loaders:
+                t.join(timeout=600)
+                check(not t.is_alive(), "a loading client did not finish")
+            check(not errors, f"loading clients failed: {errors}")
+            latency = dict(n_words=100, calls=50, idle_p50_ms=idle[0],
+                           idle_p99_ms=idle[1], ticking_p50_ms=ticking[0],
+                           ticking_p99_ms=ticking[1], ticks_during=ticks2,
+                           probe_s=t2, cpu_count=os.cpu_count())
     finally:
+        for t in (tr, probe_tr):
+            if t is not None:
+                t.close()
         svc.close()
 
     check(refused, "a tampered frame was served")
@@ -1165,7 +1262,7 @@ def phase_serve(cfg, n_clients=12):
     same = sum(results[i] == batch[i] for i in range(8))
     lock_tokens = n_clients * max_new
     emit(phase="serve", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-         ticks=ticks,
+         ticks=ticks, lockstep_via="mpklink_opt sessions" if sessions else "serve_frame",
          dtype="bfloat16", max_batch=8, max_seq=1024, lockstep_requests=n_clients,
          prompt_tokens=[len(p) for p in prompts], max_new=max_new,
          lockstep_s=lock_s, lockstep_ticks=lock_ticks,
@@ -1175,6 +1272,7 @@ def phase_serve(cfg, n_clients=12):
          batch_tokens_per_s=8 * max_new / batch_s,
          batch_ms_per_tick=batch_s / batch_ticks * 1e3,
          batch_matches_lockstep=same, tampered_frame_refused=refused,
+         small_call=latency,
          launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     attn_inputs = None
     if cfg.family in ("dense", "vlm", "moe"):
@@ -1184,6 +1282,60 @@ def phase_serve(cfg, n_clients=12):
     del eng, svc
     torch.cuda.empty_cache()
     return launches, attn_inputs
+
+
+# ---------------------------------------------------------------------------
+# ipc: the paper's word count over the six transports
+# ---------------------------------------------------------------------------
+
+def phase_ipc(smi):
+    """``launch.ipc_wordcount`` on the card: the six transports at 1e2 to
+    1e7 words (3 reps, median) and uds, mpklink and mpklink_opt at 1e8 (1
+    rep), every count exact and every key-sync and guard-launch count as
+    the code gives it (checked in ``measure``); shm refuses >= 1e5 words
+    with CapacityError; mpklink_opt syncs <= 3 times a request; frames
+    sealed in card regions verify bit for bit on the CPU and a tampered
+    region is refused; then 1 and 16 concurrent mpklink_opt sessions of
+    8 x 1e4 words through their rings. Claims 1, 2 and 5 (timings) are printed as
+    PASS/FAIL lines, not asserted. → the guard-kernel launches of the
+    measured runs."""
+    from repro_torch.launch import ipc_wordcount as ipc
+
+    launches, records = {}, []
+    cpus = os.cpu_count()
+
+    def point(rec):
+        for k, v in rec.get("launches_per_request", {}).items():
+            launches[k] = launches.get(k, 0) + int(v * rec["reps"])
+        records.append(rec)
+        emit(phase="ipc", card=smi, cpu_count=cpus, **rec)
+
+    t0 = time.perf_counter()
+    results = ipc.sweep(ipc.WORD_COUNTS_FULL, reps=3, device="cuda",
+                        endpoint=True, emit=point)
+    for n, t in results["shm"].items():
+        check((t is None) == (n >= 100_000),
+              f"shm at {n} words: {'refused' if t is None else 'served'}")
+    for name in ipc.ORDER:
+        for n, t in results[name].items():
+            check(name == "shm" or t is not None, f"{name} refused {n} words")
+    check(all(r["key_syncs_per_request"] <= 3 for r in records
+              if r["transport"] == "mpklink_opt"), "mpklink_opt: > 3 syncs a request")
+    regions = ipc.region_checks("cuda")
+    claims = ipc.validate_claims(results, "cuda")
+    for line in claims:
+        print(f"# {line} (cpu_count {cpus}; {smi})", flush=True)
+    check(all("PASS" in c for c in claims if c.startswith(("claim3", "claim4"))),
+          "claim 3 or 4 failed")
+    for n_sessions in (1, 16):
+        conc = ipc.concurrent_sessions(n_sessions, 8, 10_000, rounds=4, device="cuda")
+        for k, v in conc.pop("launches").items():
+            launches[k] = launches.get(k, 0) + v
+        emit(phase="ipc_concurrent", card=smi, cpu_count=cpus, **conc)
+    emit(phase="ipc_done", card=smi, cpu_count=cpus, regions=regions,
+         claims=claims, rows=[list(r) for r in ipc.table_rows(results)],
+         wall_s=time.perf_counter() - t0)
+    return launches
 
 
 def state_bytes(tree):
@@ -2089,13 +2241,14 @@ def main():
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
+    add(phase_ipc(smi))
     for cfg in (llama, mamba, zamba, olmo, smollm, qwen3):
         add(phase_prefill(cfg))
     add(phase_prefill(mixtral, B=2, S=6144))
     add(phase_prefill(llava, B=2, S=6144))
     add(phase_prefill(whisper, B=8, S=WHISPER_TEXT))
     add(phase_padded(smollm, SMOLLM_PADS))
-    counts, attn_inputs = phase_serve(llama)
+    counts, attn_inputs = phase_serve(llama, sessions=True)
     add(counts)
     for cfg in (mamba, zamba, olmo, smollm, qwen3, mixtral, llava):
         add(phase_serve(cfg, n_clients=8)[0])

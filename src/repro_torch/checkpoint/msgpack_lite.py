@@ -1,10 +1,13 @@
-"""A small MessagePack writer and reader for checkpoint manifests.
+"""A small MessagePack writer and reader for checkpoint manifests and the
+``grpc_sim`` transport's bodies.
 
 The manifest (``meta.msgpack.zlib``) needs maps, arrays, strings, ints,
-nil and bools, and nothing else; this module writes and reads exactly that
-subset with the encodings the ``msgpack`` package picks (``packb(obj,
-use_bin_type=True)`` gives the same bytes), so a manifest written by either
-side reads on the other. Any other type raises.
+nil and bools; ``grpc_sim`` frames its messages as maps of bytes
+(``bin`` 8/16/32) and its typed errors carry a float ``retry_after``
+(float 64). This module writes and reads exactly that subset with the
+encodings the ``msgpack`` package picks (``packb(obj, use_bin_type=True)``
+gives the same bytes), so what either side writes reads on the other; it
+also reads float 32. Any other type raises.
 """
 from __future__ import annotations
 
@@ -25,6 +28,18 @@ def _pack(obj: Any, out: bytearray) -> None:
         out.append(0xC3 if obj else 0xC2)
     elif isinstance(obj, int):
         _pack_int(obj, out)
+    elif isinstance(obj, float):
+        out += b"\xcb" + struct.pack(">d", obj)
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        raw = memoryview(obj).cast("B")
+        n = raw.nbytes
+        if n < 1 << 8:
+            out += bytes((0xC4, n))
+        elif n < 1 << 16:
+            out += b"\xc5" + struct.pack(">H", n)
+        else:
+            out += b"\xc6" + struct.pack(">I", n)
+        out += raw
     elif isinstance(obj, str):
         raw = obj.encode("utf-8")
         n = len(raw)
@@ -88,7 +103,10 @@ def unpackb(data: bytes) -> Any:
 
 
 _FIXED = {0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
-          0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+          0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q",
+          0xCA: ">f", 0xCB: ">d"}
+_LENGTHS = {0xC4: ">B", 0xC5: ">H", 0xC6: ">I",       # bin 8/16/32
+            0xD9: ">B", 0xDA: ">H", 0xDB: ">I"}       # str 8/16/32
 
 
 def _unpack(buf: memoryview, i: int) -> Tuple[Any, int]:
@@ -112,10 +130,13 @@ def _unpack(buf: memoryview, i: int) -> Tuple[Any, int]:
         fmt = _FIXED[c]
         size = struct.calcsize(fmt)
         return struct.unpack_from(fmt, buf, i)[0], i + size
-    if c in (0xD9, 0xDA, 0xDB):
-        fmt = {0xD9: ">B", 0xDA: ">H", 0xDB: ">I"}[c]
+    if c in _LENGTHS:
+        fmt = _LENGTHS[c]
         n = struct.unpack_from(fmt, buf, i)[0]
-        return _str(buf, i + struct.calcsize(fmt), n)
+        i += struct.calcsize(fmt)
+        if c <= 0xC6:
+            return bytes(buf[i:i + n]), i + n
+        return _str(buf, i, n)
     if c in (0xDC, 0xDD, 0xDE, 0xDF):
         fmt = ">H" if c in (0xDC, 0xDE) else ">I"
         n = struct.unpack_from(fmt, buf, i)[0]

@@ -21,16 +21,25 @@ Frames live on a device. The MACs run where the frame lies, through
 ``mac_update`` → ``mac_finalize`` (:func:`fast_mac`); :func:`verify_view`
 runs the receive-side guard
 kernel ``guard_copy`` and hands back the payload from its protected copy;
-:func:`seal_batch` / :func:`verify_batch` MAC a batch of frames with one
-``mac_batch`` launch per row count. The header words are checked and
-written on the host. Verified payloads are tensors on the frame's device.
+:func:`seal_batch` / :func:`seal_into_batch` / :func:`verify_batch` MAC a
+batch of frames with one ``mac_batch`` launch per row count. The header
+words are checked and written on the host. Verified payloads are tensors
+on the frame's device.
 
-Left out of this port (see ROADMAP.md): ``FrameArena``, ``STATS`` and the
-``ZERO_COPY`` legacy paths.
+:func:`seal_into` and :func:`seal_into_batch` seal straight into a caller's
+buffer (a :class:`FrameArena` slot or a transport's region), and
+:func:`seal_prefilled` seals a payload the caller already wrote there.
+:data:`STATS` counts what the data plane does (frames sealed and verified,
+bytes the framing layer writes, arena traffic, doorbell wakeups, key
+syncs), exact under concurrent writers.
+
+Left out of this port (see ROADMAP.md): the reference's ``ZERO_COPY =
+False`` legacy copy path.
 """
 from __future__ import annotations
 
 import math
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -63,6 +72,94 @@ class FrameError(ValueError):
 
 
 # ---------------------------------------------------------------------------
+# data-plane counters
+# ---------------------------------------------------------------------------
+
+class FrameStats:
+    """Process-wide framing + data-plane counters (the reference's
+    ``FrameStats``). ``bytes_copied`` counts every payload byte the framing
+    layer writes (the seal's payload write, the guard's protected copy);
+    ``concat_calls`` stays 0 in the port (it has no concatenating path).
+
+    The transports account their signalling here too: ``wakeups`` counts
+    doorbell rings, ``doorbell_parks`` waits that parked after the bounded
+    spin, and ``key_syncs`` PKRU synchronization round trips.
+
+    Counters are sharded per thread (each thread owns a private dict,
+    registered once under a lock), so :meth:`bump` takes no lock and can
+    never lose an increment; :meth:`snapshot` sums the shards, exact once
+    the counting threads have quiesced. Shards of dead threads are folded
+    into a retired base, so a process cycling many session threads does
+    not accumulate them. Reading a field attribute sums the shards too."""
+
+    _FIELDS = ("frames_sealed", "frames_sealed_inplace", "frames_verified",
+               "views_returned", "bytes_copied", "concat_calls",
+               "arena_allocated", "arena_reused", "arena_released",
+               "wakeups", "doorbell_parks", "key_syncs")
+
+    def __init__(self):
+        self._rlock = threading.Lock()      # guards the shard registry only
+        self._local = threading.local()
+        self._shards: List[Tuple[threading.Thread, Dict[str, int]]] = []
+        self._retired: Dict[str, int] = dict.fromkeys(self._FIELDS, 0)
+
+    def _shard(self) -> Dict[str, int]:
+        d = getattr(self._local, "d", None)
+        if d is None:
+            d = dict.fromkeys(self._FIELDS, 0)
+            self._local.d = d
+            with self._rlock:
+                self._shards.append((threading.current_thread(), d))
+        return d
+
+    def _fold_dead_locked(self) -> None:
+        live = []
+        for th, d in self._shards:
+            if th.is_alive():
+                live.append((th, d))
+            else:                       # no further bumps possible: fold
+                for f in self._FIELDS:
+                    self._retired[f] += d[f]
+        self._shards = live
+
+    def bump(self, **deltas: int) -> None:
+        """Add each delta to its counter (lock-free: a per-thread shard);
+        unknown counter names raise KeyError."""
+        d = getattr(self._local, "d", None)
+        if d is None:
+            d = self._shard()
+        for name, delta in deltas.items():
+            d[name] += delta            # KeyError on unknown fields
+
+    def reset(self):
+        with self._rlock:
+            self._fold_dead_locked()
+            self._retired = dict.fromkeys(self._FIELDS, 0)
+            shards = [d for _, d in self._shards]
+        for d in shards:
+            for f in self._FIELDS:
+                d[f] = 0
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._rlock:
+            self._fold_dead_locked()
+            out = dict(self._retired)
+            shards = [d for _, d in self._shards]
+        for d in shards:
+            for f in self._FIELDS:
+                out[f] += d[f]
+        return out
+
+    def __getattr__(self, name: str):
+        if not name.startswith("_") and name in FrameStats._FIELDS:
+            return self.snapshot()[name]
+        raise AttributeError(name)
+
+
+STATS = FrameStats()
+
+
+# ---------------------------------------------------------------------------
 # MAC helpers
 # ---------------------------------------------------------------------------
 
@@ -71,8 +168,11 @@ def _word(t: torch.Tensor) -> int:
     return int(t.cpu().tolist()[0])
 
 
+FAST_MAC_BLOCK_ROWS = 65536   # payload rows per mac_update launch of a seal
+
+
 def fast_mac(payload_u32: torch.Tensor, seed: int,
-             block_rows: int = 65536) -> int:
+             block_rows: int = FAST_MAC_BLOCK_ROWS) -> int:
     """Payload MAC as init → one ``mac_update`` per ``block_rows`` rows →
     fold, on the payload's device (the reference's ``transports.fast_mac``).
     Any split gives the same word."""
@@ -145,11 +245,12 @@ def _meta_of(t: torch.Tensor) -> dict:
 
 
 def _fill_payload(payload: torch.Tensor, t: torch.Tensor, nbytes: int) -> None:
-    """Write ``t``'s bytes into the (rows, 128) uint32 ``payload`` and zero
-    the pad tail (it is MAC-covered)."""
+    """Write ``t``'s bytes into the (rows, 128) uint32 ``payload`` (one copy,
+    across devices where ``t`` lies elsewhere) and zero the pad tail (it is
+    MAC-covered)."""
     pbytes = payload.reshape(-1).view(torch.uint8)
     if nbytes:
-        pbytes[:nbytes] = t.reshape(-1).view(torch.uint8).to(payload.device)
+        pbytes[:nbytes].copy_(t.reshape(-1).view(torch.uint8))
     pbytes[nbytes:] = 0
 
 
@@ -200,6 +301,16 @@ def _write_header(frame: torch.Tensor, row: np.ndarray) -> None:
         torch.from_numpy(row.view(np.int32)).to(frame.device))
 
 
+def _write_headers(bufs: Sequence[torch.Tensor], rows: List[np.ndarray]) -> None:
+    """Row 0 of each buffer from its header row, with one host-to-device
+    copy for the lot (a device-side copy into each buffer)."""
+    if not bufs:
+        return
+    src = torch.from_numpy(np.stack(rows).view(np.int32)).to(bufs[0].device)
+    for buf, row in zip(bufs, src):
+        buf[0].view(torch.int32).copy_(row)
+
+
 def _check_buf(buf: torch.Tensor, rows: int) -> None:
     if (not isinstance(buf, torch.Tensor) or buf.ndim != 2
             or buf.shape[1] != LANES or buf.dtype != torch.uint32):
@@ -212,7 +323,8 @@ def _check_buf(buf: torch.Tensor, rows: int) -> None:
 
 
 def seal_into(buf: torch.Tensor, arr, *, seed: int, seq: int,
-              deadline_us: int = 0, priority: int = 0) -> int:
+              deadline_us: int = 0, priority: int = 0,
+              _inplace: bool = True) -> int:
     """Seal ``arr`` as a frame directly into ``buf`` (a contiguous
     (>= frame_rows, 128) uint32 tensor; written in place): payload bytes,
     zeroed pad tail, MAC over the payload in place, header last. Returns
@@ -225,6 +337,52 @@ def seal_into(buf: torch.Tensor, arr, *, seed: int, seq: int,
     _fill_payload(payload, t, meta["nbytes"])
     mac = fast_mac(payload, seed)
     _write_header(buf, _header(meta, seed, seq, mac, deadline_us, priority))
+    STATS.bump(frames_sealed=1, bytes_copied=meta["nbytes"],
+               frames_sealed_inplace=int(_inplace))
+    return rows
+
+
+def seal_into_batch(bufs: Sequence[torch.Tensor], arrays: Sequence, *,
+                    seed: int, seqs: Sequence[int],
+                    deadlines_us: Optional[Sequence[int]] = None,
+                    priorities: Optional[Sequence[int]] = None) -> List[int]:
+    """Seal N frames in place, each into its ``bufs[i]``, with the payload
+    MACs of one ``mac_batch`` launch per row count (the arena twin of
+    :func:`seal_batch`). Returns the rows used per frame."""
+    tensors = [_as_tensor(a) for a in arrays]
+    metas = [_meta_of(t) for t in tensors]
+    rows_list = [frame_rows(m["nbytes"]) for m in metas]
+    payloads = []
+    for buf, t, meta, rows in zip(bufs, tensors, metas, rows_list):
+        _check_buf(buf, rows)
+        payloads.append(buf[1:rows])
+        _fill_payload(payloads[-1], t, meta["nbytes"])
+    macs = mac_batch(payloads, seed)
+    n = len(tensors)
+    deadlines_us = [0] * n if deadlines_us is None else deadlines_us
+    priorities = [PRIO_NORMAL] * n if priorities is None else priorities
+    _write_headers(bufs, [_header(m, seed, q, mac, dl, pr) for m, q, mac, dl, pr
+                          in zip(metas, seqs, macs, deadlines_us, priorities)])
+    STATS.bump(frames_sealed=n, frames_sealed_inplace=n,
+               bytes_copied=sum(m["nbytes"] for m in metas))
+    return rows_list
+
+
+def seal_prefilled(buf: torch.Tensor, nbytes: int, *, seed: int, seq: int,
+                   deadline_us: int = 0, priority: int = 0) -> int:
+    """Seal a frame whose ``nbytes`` payload bytes the caller already wrote
+    into ``buf[1:]`` (viewed as bytes): zero the pad tail, MAC in place,
+    write the header. The frame is a flat uint8 payload of ``nbytes``
+    bytes, bit for bit ``seal_into(buf, <those bytes>, ...)``."""
+    rows = frame_rows(nbytes)
+    _check_buf(buf, rows)
+    payload = buf[1:rows]
+    payload.reshape(-1).view(torch.uint8)[nbytes:] = 0
+    mac = fast_mac(payload, seed)
+    meta = {"dtype_code": _DTYPE_CODES[torch.uint8], "nbytes": int(nbytes),
+            "shape": (int(nbytes),)}
+    _write_header(buf, _header(meta, seed, seq, mac, deadline_us, priority))
+    STATS.bump(frames_sealed=1, frames_sealed_inplace=1)
     return rows
 
 
@@ -235,7 +393,7 @@ def build_frame(arr, *, seed: int, seq: int, deadline_us: int = 0,
     frame = torch.empty((frame_rows(_meta_of(t)["nbytes"]), LANES),
                         dtype=torch.uint32, device=resolve(device))
     seal_into(frame, t, seed=seed, seq=seq, deadline_us=deadline_us,
-              priority=priority)
+              priority=priority, _inplace=False)
     return frame
 
 
@@ -260,8 +418,10 @@ def seal_batch(arrays: Sequence, *, seed: int, start_seq: Optional[int] = None,
     for f, t, m in zip(frames, tensors, metas):
         _fill_payload(f[1:], t, m["nbytes"])
     macs = mac_batch([f[1:] for f in frames], seed)
-    for f, m, seq, mac, prio in zip(frames, metas, seqs, macs, priorities):
-        _write_header(f, _header(m, seed, seq, mac, 0, prio))
+    _write_headers(frames, [_header(m, seed, seq, mac, 0, prio) for m, seq, mac, prio
+                            in zip(metas, seqs, macs, priorities)])
+    STATS.bump(frames_sealed=len(frames),
+               bytes_copied=sum(m["nbytes"] for m in metas))
     return frames
 
 
@@ -327,7 +487,10 @@ def verify_view(frame: torch.Tensor, *, seed: int,
                                  _expected_mac(header, seed))
     if not int(ok.cpu().tolist()[0]):
         raise FrameError("MAC mismatch — payload or header tampered/truncated")
-    return unpack_payload(copy, _check_fields(header, frame.shape[0]))
+    out = unpack_payload(copy, _check_fields(header, frame.shape[0]))
+    STATS.bump(frames_verified=1, views_returned=1,
+               bytes_copied=copy.numel() * 4)
+    return out
 
 
 # In the port both receive paths return the guarded copy.
@@ -342,23 +505,35 @@ def verify_batch(frames: Sequence[torch.Tensor], *, seed: int,
     row count. With ``strict=True`` the first bad frame raises (message
     prefixed with its batch index); with ``strict=False`` the list carries
     the ``FrameError`` in that frame's position. Payloads are views of the
-    frames."""
+    frames. The header rows are read back in one device-to-host copy."""
     if seqs is None and start_seq is not None:
         seqs = [start_seq + i for i in range(len(frames))]
     out: List[Union[torch.Tensor, FrameError, None]] = [None] * len(frames)
-    headers: Dict[int, list] = {}
+
+    def refuse(i: int, e: FrameError) -> None:
+        if strict:
+            raise FrameError(f"frame {i}: {e}") from None
+        out[i] = e
+
+    shaped = []
     for i, f in enumerate(frames):
         try:
             _check_shape(f)
-            headers[i] = f[0].cpu().tolist()
-            _precheck(headers[i], seed, None if seqs is None else seqs[i])
+            shaped.append(i)
         except FrameError as e:
-            if strict:
-                raise FrameError(f"frame {i}: {e}") from None
-            out[i] = e
-            headers.pop(i, None)
+            refuse(i, e)
+    rows = (torch.stack([frames[i][0].view(torch.int32) for i in shaped])
+            .cpu().numpy().view(np.uint32).tolist() if shaped else [])
+    headers: Dict[int, list] = {}
+    for i, header in zip(shaped, rows):
+        try:
+            _precheck(header, seed, None if seqs is None else seqs[i])
+            headers[i] = header
+        except FrameError as e:
+            refuse(i, e)
     candidates = list(headers)
     macs = mac_batch([frames[i][1:] for i in candidates], seed)
+    STATS.bump(frames_verified=len(candidates))
     for i, mac in zip(candidates, macs):
         try:
             if mac != _expected_mac(headers[i], seed):
@@ -367,10 +542,113 @@ def verify_batch(frames: Sequence[torch.Tensor], *, seed: int,
             meta = _check_fields(headers[i], frames[i].shape[0])
             out[i] = unpack_payload(frames[i][1:], meta)
         except FrameError as e:
-            if strict:
-                raise FrameError(f"frame {i}: {e}") from None
-            out[i] = e
+            refuse(i, e)
     return out
+
+
+# ---------------------------------------------------------------------------
+# arena of frame slots
+# ---------------------------------------------------------------------------
+
+DEFAULT_ARENA_ROWS = 1 << 17             # 64 MiB of 512-byte rows
+ARENA_MIN_ROWS = 16                      # the smallest slot class
+
+
+class FrameArena:
+    """Recycling pool of ``(rows, 128)`` uint32 frame slots carved out of
+    one backing tensor of ``rows`` rows on ``device`` (the reference's
+    backed ``FrameArena``).
+
+    Slots are size-classed (rows rounded up to the next power of two at or
+    above :data:`ARENA_MIN_ROWS`) and carved from the backing with a bump
+    cursor; released slots go to their class's free list and are handed
+    out again, so the steady state carves nothing. Exhausting the backing
+    raises :class:`FrameError` (the transports surface it as their typed
+    capacity error). The backing is made at the first :meth:`acquire`, on
+    the caller's current stream.
+
+    The reference recycles a slot once numpy's reference counts show that
+    no view of it is alive. Every slot of a torch backing shares one
+    storage, so the port states its rule instead: **a slot is released
+    only after the last kernel that reads it has been queued on the stream
+    that every later writer of the slot uses** (a transport runs all its
+    sessions' data-plane work on one stream, so a later seal into the
+    reused slot runs after that read). Nothing handed to a caller aliases a
+    slot: ``verify_view`` returns a view of ``guard_copy``'s protected copy,
+    and the transports copy the payloads that ``verify_batch`` verified
+    before they release the slots. Releasing a slot that is not out (twice,
+    or a tensor the arena did not carve) raises. Thread-safe."""
+
+    def __init__(self, rows: int = DEFAULT_ARENA_ROWS, device="cuda"):
+        self.rows, self.device = int(rows), resolve(device)
+        self._backing: Optional[torch.Tensor] = None
+        self._free: Dict[int, List[torch.Tensor]] = {}
+        self._out: set = set()          # row offsets of the slots handed out
+        self._brk = 0                   # rows carved so far
+        self._lock = threading.Lock()
+
+    def _class_rows(self, rows: int) -> int:
+        c = ARENA_MIN_ROWS
+        while c < rows:
+            c <<= 1
+        return c
+
+    def acquire(self, rows: int) -> torch.Tensor:
+        """A (class_rows, 128) uint32 slot with class_rows >= ``rows``,
+        recycled from the free list when it has one, carved otherwise.
+        Its contents are undefined (``seal_into`` writes the whole frame)."""
+        c = self._class_rows(max(1, int(rows)))
+        with self._lock:
+            lst = self._free.get(c)
+            if lst:
+                buf = lst.pop()
+                STATS.bump(arena_reused=1)
+            else:
+                if self._brk + c > self.rows:
+                    raise FrameError(
+                        f"arena exhausted: need {c} rows, {self.rows - self._brk} "
+                        f"of {self.rows} left (slots out are not recycled "
+                        f"until released)")
+                if self._backing is None:
+                    self._backing = torch.empty((self.rows, LANES),
+                                                dtype=torch.uint32, device=self.device)
+                buf = self._backing[self._brk:self._brk + c]
+                self._brk += c
+                STATS.bump(arena_allocated=1)
+            self._out.add(self._offset(buf))
+        return buf
+
+    def _offset(self, buf: torch.Tensor) -> int:
+        base = self._backing
+        span = buf.data_ptr() - base.data_ptr() if base is not None else -1
+        off, rem = divmod(span, LANES * 4)
+        if (rem or off < 0 or buf.device != base.device or buf.ndim != 2
+                or off + buf.shape[0] > base.shape[0]):
+            raise FrameError("tensor is not a row-aligned slot of this arena")
+        return off
+
+    def offset_rows(self, buf: torch.Tensor) -> int:
+        """Row offset of a carved slot inside the backing: where a peer
+        that maps the backing finds the slot."""
+        return self._offset(buf)
+
+    def release(self, buf: Optional[torch.Tensor]) -> None:
+        """Return a slot to its class's free list (under the rule above:
+        the last kernel that reads it is already queued)."""
+        if buf is None:
+            return
+        with self._lock:
+            off = self._offset(buf)
+            if off not in self._out:
+                raise FrameError(f"slot at row {off} is not out (released "
+                                 f"twice?)")
+            self._out.discard(off)
+            self._free.setdefault(buf.shape[0], []).append(buf)
+        STATS.bump(arena_released=1)
+
+    def free_slots(self) -> int:
+        with self._lock:
+            return sum(len(v) for v in self._free.values())
 
 
 # ---------------------------------------------------------------------------

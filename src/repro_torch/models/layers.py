@@ -77,11 +77,11 @@ def layer_norm(x: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def init_norm(cfg: ModelConfig, lead=(), dtype=torch.float32, device="cpu") -> dict:
-    """A norm's parameters with leading axes ``lead`` (``(L,)`` for a
-    stack), as the reference's ``init_norm``: ``{}`` for np_layernorm,
-    ``{"scale"}`` (ones) for rmsnorm, and ``{"scale", "bias"}`` (zeros)
-    for layernorm."""
+def init_norm(cfg: ModelConfig, lead=(), dtype=torch.float32, *, device) -> dict:
+    """A norm's parameters on ``device`` with leading axes ``lead``
+    (``(L,)`` for a stack), as the reference's ``init_norm``: ``{}`` for
+    np_layernorm, ``{"scale"}`` (ones) for rmsnorm, and ``{"scale",
+    "bias"}`` (zeros) for layernorm."""
     if cfg.norm_type == "np_layernorm":
         return {}
     shape = (*lead, cfg.d_model)

@@ -60,11 +60,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     embed = {"tok": torch.nn.init.normal_(tok, 0.0, 0.02, generator=gen).to(dtype)}
     if not cfg.tie_embeddings:
         embed["head"] = dense_init(gen, (D, vp), D, dtype)
-    params = {"embed": embed, "final_norm": init_norm(cfg, (), dtype, gen.device)}
+    params = {"embed": embed, "final_norm": init_norm(cfg, (), dtype, device=gen.device)}
     if cfg.enc_dec:
         params["enc_blocks"] = tf.init_stack(cfg, gen, cfg.enc_layers, dtype)
         params["blocks"] = tf.init_dec_stack(cfg, gen, cfg.num_layers, dtype)
-        params["enc_final_norm"] = init_norm(cfg, (), dtype, gen.device)
+        params["enc_final_norm"] = init_norm(cfg, (), dtype, device=gen.device)
     else:
         params["blocks"] = tf.init_stack(cfg, gen, cfg.num_layers, dtype)
     if cfg.family == "hybrid":

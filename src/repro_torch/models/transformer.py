@@ -86,7 +86,7 @@ def init_stack(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
     check_ported(cfg)
     if cfg.family not in ("ssm", "hybrid"):
         return _init_attn_blocks(cfg, gen, n_layers, dtype)
-    return {"ln1": init_norm(cfg, (n_layers,), dtype, gen.device),
+    return {"ln1": init_norm(cfg, (n_layers,), dtype, device=gen.device),
             "mamba": ssm_mod.init_mamba_stack(cfg, gen, n_layers, dtype)}
 
 
@@ -136,8 +136,8 @@ def _init_attn_blocks(cfg: ModelConfig, gen: torch.Generator, L: int, dtype) -> 
                "down": dense_init(gen, (L, F, D), F, dtype)}
         if cfg.mlp_type == "glu":
             ffn["gate"] = dense_init(gen, (L, D, F), D, dtype)
-    return {"ln1": init_norm(cfg, (L,), dtype, gen.device), "attn": attn,
-            "ln2": init_norm(cfg, (L,), dtype, gen.device), "ffn": ffn}
+    return {"ln1": init_norm(cfg, (L,), dtype, device=gen.device), "attn": attn,
+            "ln2": init_norm(cfg, (L,), dtype, device=gen.device), "ffn": ffn}
 
 
 def init_dec_stack(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
@@ -148,7 +148,7 @@ def init_dec_stack(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
     own)."""
     p = _init_attn_blocks(cfg, gen, n_layers, dtype)
     p["cross"] = _init_attn(cfg, gen, n_layers, dtype)
-    p["ln3"] = init_norm(cfg, (n_layers,), dtype, gen.device)
+    p["ln3"] = init_norm(cfg, (n_layers,), dtype, device=gen.device)
     return p
 
 

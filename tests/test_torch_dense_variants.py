@@ -137,7 +137,7 @@ def test_apply_norm_dispatches_like_the_reference(norm_type):
     if "scale" in jp:
         jp = {k: v + jnp.asarray(rng.standard_normal(64), jnp.float32)
               for k, v in jp.items()}
-    tp = layers.init_norm(cfg)
+    tp = layers.init_norm(cfg, device="cpu")
     assert _shapes(tp) == _shapes(jp)
     tp = _port(jp)
     want = np.asarray(jlayers.apply_norm(jcfg, jp, jnp.asarray(x)))
