@@ -81,6 +81,27 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              counts are zeroed just before and read just after; each kernel
              of the path must be > 0, and decode attention must launch once
              per attention block a tick.
+   gateway — the north star's ``GatewayClient.call("infer", ...)``: the
+             port's ``ServiceGateway("mpklink_opt", workers=2)`` with card
+             regions in front of llama3.2-1b's engine (``infer``, bf16,
+             max_batch 8, max_seq 1024), the word count (``wc``) and an
+             allow-listed ``billing``; 12 clients' lockstep calls, a batch
+             of 8, a scatter across infer and wc, then 12 coalesced
+             callers (cohorts recorded in ``EngineService.cohorts``), each
+             path's greedy tokens equal to ``serve_frame``'s with no
+             gateway; decode attention once per attention block a tick;
+             the guard launches and key syncs of the lockstep, batch and
+             scatter envelopes equal to ``launch.gateway_bench``'s counts;
+             the scatter twice under wc load, identical bits; refusals,
+             each typed (a frame sealed under wc's channel sent to infer,
+             a client with no billing key, a stale key after a
+             revocation, a 1 ms budget against the ticking engine, one
+             tampered item of a batch, the next frame off 16 bytes); two
+             in-process replicas of wc, one drained under traffic, no lost
+             call; ``greedy=False`` sampling with seeded CUDA generators.
+             Printed, not asserted: requests/s and p50/p99 of calls at 1
+             and 12 clients, direct and coalesced, and of a 100-word wc
+             call with infer idle and ticking, beside ``os.cpu_count()``.
    decode  — uniform decode through ``make_decode_step`` (bf16, 8 rows,
              64 ticks): whisper-tiny from its encoder output and cross K/V
              built once (8 decode-attention launches a tick), llava at full
@@ -117,8 +138,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              at a capacity factor of E / k, where neither path drops).
 
 Then a ``kernels`` JSON line (times from CUDA events, bounds from this
-run's inputs, launches summed over the ipc, prefill, serve, decode and
-train phases; the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
+run's inputs, launches summed over the ipc, prefill, serve, gateway,
+decode and train phases; the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
 replaced timed in this run, and the two backwards the design each replaced
 (flash: ``mma.sync``; SSD: the per-head chunk kernel, also
 ``earlier_pass_ms``); the four add ``kernels_per_call``, the kernel
@@ -1285,6 +1306,433 @@ def phase_serve(cfg, n_clients=12, sessions=False):
 
 
 # ---------------------------------------------------------------------------
+# gateway: the north star's GatewayClient.call("infer", ...) on the card
+# ---------------------------------------------------------------------------
+
+def _gw_rows(gw_mod, raw, n):
+    """Walk a batch response envelope → [(status, frame or blob, frame
+    offset)] (the frame copied to an aligned tensor where it lies off 16
+    bytes, as the client does)."""
+    hb = gw_mod._HostBytes(raw.reshape(-1).view(torch.uint8))
+    route = gw_mod._response_route(hb)
+    check(route[1] == 2 and route[3] == n, f"not a batch response: {route}")
+    items, ofs = [], 16
+    for status, body in gw_mod._read_items(hb, n, "batch"):
+        nb = body[0].numel() * 4 if status == 0 else len(body)
+        items.append((status, body, ofs + 16))
+        ofs += 16 + nb + (-nb) % 4
+    return items
+
+
+def _gw_timed(calls):
+    """p50/p99 ms and requests/s of ``calls`` (a list of lists of functions,
+    one list a thread, each function one call)."""
+    lat, errors, lock = [], [], threading.Lock()
+
+    def run(fns):
+        try:
+            for fn in fns:
+                t0 = time.perf_counter()
+                fn()
+                dt = time.perf_counter() - t0
+                with lock:
+                    lat.append(dt)
+        except BaseException as e:          # noqa: B036 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(fns,)) for fns in calls]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        check(not t.is_alive(), "a timed gateway caller did not finish")
+    wall = time.perf_counter() - t0
+    check(not errors, f"timed gateway calls failed: {errors}")
+    p50, p99 = _pcts(lat)
+    return dict(calls=len(lat), p50_ms=p50, p99_ms=p99,
+                requests_per_s=len(lat) / wall)
+
+
+def phase_gateway(cfg, smi, n_clients=12, max_new=16):
+    """The port's ``ServiceGateway("mpklink_opt", workers=2)`` on the card
+    with card regions, in front of the engine (``infer``, bf16, full width
+    and depth, max_batch 8, max_seq 1024), the word count (``wc``) and an
+    allow-listed ``billing`` service, every call through the port's
+    ``GatewayClient``s. Held exactly: greedy tokens equal the same engine's
+    through ``transports.serve_frame`` with no gateway, on every path
+    (lockstep, batch, scatter, coalesced); decode attention once per
+    attention block a tick; the guard-kernel launches and key syncs of the
+    lockstep, batch and scatter envelopes equal ``launch.gateway_bench``'s
+    counts from the code; two scatters under load give identical bits.
+    Refused with their typed errors: a frame sealed under wc's channel
+    sent to infer, a client with no billing key, a stale key after a
+    revocation, a 1 ms budget against the ticking engine, one tampered item
+    of a batch (only that item; the next frame lies off 16 bytes). Then a
+    fleet of two in-process replicas of wc drained under traffic with no
+    lost call, and ``greedy=False`` sampling with seeded CUDA generators.
+    Printed, not asserted: requests/s and p50/p99 of calls at 1 and 12
+    clients, direct and coalesced, and of a 100-word wc call with infer idle
+    and ticking. → the launch counts of the counted runs (lockstep, batch,
+    quiet scatter, coalesced)."""
+    from repro_torch.core import AccessViolation, ServiceGateway, framing
+    from repro_torch.core import gateway as gw_mod
+    from repro_torch.core import transports
+    from repro_torch.core.transports import DeadlineExpired, _raise_remote
+    from repro_torch.core.wordcount import make_text, parse_count, wordcount_handler
+    from repro_torch.kernels import ops
+    from repro_torch.launch import gateway_bench as gb
+    from repro_torch.runtime import EngineService, Request, ServingEngine, encode_prompt
+
+    t_phase = time.perf_counter()
+    eng = _engine(cfg, torch.bfloat16, 0, 8, 1024)
+    svc = EngineService(eng, timeout=600).start()
+    rng = torch.Generator().manual_seed(SEED + 7)
+    prompts = [torch.randint(0, cfg.vocab_size, (8 + (40 * i) // 11,),
+                             generator=rng).tolist() for i in range(n_clients)]
+    reqs = [encode_prompt(p, max_new) for p in prompts]
+    n_attn = decode_blocks(cfg)
+    errors = []
+
+    def threads_of(fn, n):
+        ts = [threading.Thread(target=fn, args=(i,)) for i in range(n)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+            check(not t.is_alive(), "a gateway client thread did not finish")
+        check(not errors, f"gateway clients failed: {errors}")
+
+    # the same engine through the service step with no gateway: the oracle
+    want = {}
+
+    def oracle(i):
+        try:
+            frame = framing.build_frame(reqs[i], seed=SEED, seq=i, device="cuda")
+            resp = transports.serve_frame(frame, svc.handler, seed=SEED, seq=i)
+            want[i] = framing.verify_view(resp, seed=SEED, expect_seq=i).cpu().tolist()
+        except BaseException as e:          # noqa: B036 — reported by threads_of
+            errors.append(repr(e))
+
+    threads_of(oracle, n_clients)
+
+    gw = ServiceGateway("mpklink_opt", workers=2, max_keys=1024, device="cuda",
+                        transport_kwargs={"timeout": 600})
+    gw.register_service("infer", svc.handler, batch_handler=svc.handler_batch)
+    gw.register_service("wc", wordcount_handler)
+    gw.register_service("billing", wordcount_handler, allow={"accountant"})
+    gw.start()
+    counted, ticks_counted = {}, 0
+    checks = {}
+
+    def count_from(launches0_ticks):
+        nonlocal ticks_counted
+        torch.cuda.synchronize()
+        got = ops.LAUNCHES.snapshot()
+        ticks = eng.ticks - launches0_ticks
+        check(got["decode_attention"] == n_attn * ticks,
+              f"gateway: {got['decode_attention']} decode-attention launches in "
+              f"{ticks} ticks, want {n_attn} a tick")
+        for k, v in got.items():
+            counted[k] = counted.get(k, 0) + v
+        ticks_counted += ticks
+        return got
+
+    def guard(got):
+        return {k: v for k, v in got.items() if k in GUARD_KERNELS and v}
+
+    try:
+        clients = [gw.connect(f"client-{i}") for i in range(n_clients)]
+        for c in clients:
+            c.open("infer")
+            c.open("wc")
+        text = make_text(100, seed=3)
+        check(parse_count(clients[0].call("wc", text)) == 100, "wc warm-up")
+        clients[0].call("infer", encode_prompt(prompts[0], 2))
+        tr = gw.transport
+        resp_nb = 4 * max_new
+
+        # 1. lockstep: 12 clients, one call each
+        got_lock = {}
+
+        def lock_call(i):
+            try:
+                got_lock[i] = clients[i].call("infer", reqs[i]).cpu().tolist()
+            except BaseException as e:      # noqa: B036
+                errors.append(repr(e))
+
+        torch.cuda.synchronize()
+        ops.LAUNCHES.reset()
+        syncs0, ticks0, t0 = tr.sync_count, eng.ticks, time.perf_counter()
+        threads_of(lock_call, n_clients)
+        lock_s = time.perf_counter() - t0
+        got = count_from(ticks0)
+        check(all(got_lock[i] == want[i] for i in range(n_clients)),
+              "lockstep gateway tokens differ from serve_frame's")
+        want_l = gb._add(*(gb.single_launches(r.nbytes, resp_nb, "cuda") for r in reqs))
+        want_s = sum(gb.envelope_syncs(tr, gb.single_bytes(r.nbytes, resp_nb)[0])
+                     for r in reqs)
+        check(guard(got) == want_l and tr.sync_count - syncs0 == want_s,
+              f"lockstep: launches {guard(got)} and {tr.sync_count - syncs0} key "
+              f"syncs, the code gives {want_l} and {want_s}")
+        checks["lockstep"] = dict(launches=guard(got), key_syncs=want_s,
+                                  seconds=lock_s)
+
+        # 2. one batch envelope of 8
+        torch.cuda.synchronize()
+        ops.LAUNCHES.reset()
+        syncs0, ticks0 = tr.sync_count, eng.ticks
+        batch = [r.cpu().tolist() for r in clients[0].call_batch("infer", reqs[:8])]
+        got = count_from(ticks0)
+        check(batch == [want[i] for i in range(8)],
+              "batch-envelope tokens differ from serve_frame's")
+        want_l = gb.batch_launches([r.nbytes for r in reqs[:8]], [resp_nb] * 8, "cuda")
+        want_s = gb.envelope_syncs(tr, gb.batch_bytes([r.nbytes for r in reqs[:8]],
+                                                      [resp_nb] * 8)[0])
+        check(guard(got) == want_l and tr.sync_count - syncs0 == want_s,
+              f"batch: launches {guard(got)} and {tr.sync_count - syncs0} key "
+              f"syncs, the code gives {want_l} and {want_s}")
+        checks["batch"] = dict(launches=guard(got), key_syncs=want_s)
+
+        # 3. scatter across infer and wc (quiet, counted), then twice under load
+        texts = [make_text(50 + 37 * k, seed=k) for k in range(4)]
+        items = [("infer", reqs[k]) for k in range(4)] + [("wc", t) for t in texts]
+        torch.cuda.synchronize()
+        ops.LAUNCHES.reset()
+        syncs0, ticks0 = tr.sync_count, eng.ticks
+        outs = clients[1].call_many(items)
+        got = count_from(ticks0)
+        check([o.cpu().tolist() for o in outs[:4]] == [want[k] for k in range(4)]
+              and [parse_count(o) for o in outs[4:]] == [50 + 37 * k for k in range(4)],
+              "scatter answers differ")
+        sizes = [(s, p.nbytes, resp_nb if s == "infer" else 8) for s, p in items]
+        want_l = gb.scatter_launches(sizes, "cuda")
+        want_s = gb.envelope_syncs(tr, gb.scatter_bytes([n for _, n, _ in sizes],
+                                                        [r for _, _, r in sizes])[0])
+        check(guard(got) == want_l and tr.sync_count - syncs0 == want_s,
+              f"scatter: launches {guard(got)} and {tr.sync_count - syncs0} key "
+              f"syncs, the code gives {want_l} and {want_s}")
+        checks["scatter"] = dict(launches=guard(got), key_syncs=want_s)
+
+        stop = threading.Event()
+        big = make_text(100_000, seed=11)
+
+        def load(i):        # wc traffic on the same transport stream meanwhile
+            try:
+                while not stop.is_set():
+                    check(parse_count(clients[6 + i].call("wc", big)) == 100_000,
+                          "a loading wc call came back wrong")
+            except BaseException as e:      # noqa: B036
+                errors.append(repr(e))
+
+        loaders = [threading.Thread(target=load, args=(i,)) for i in range(4)]
+        for t in loaders:
+            t.start()
+        try:
+            runs = [[o.cpu().view(torch.uint8) for o in clients[1].call_many(items)]
+                    for _ in range(2)]
+        finally:
+            stop.set()
+            for t in loaders:
+                t.join(timeout=600)
+        check(not errors, f"loading clients failed: {errors}")
+        check(all(torch.equal(a, b) for a, b in zip(*runs))
+              and [r.view(torch.int32).tolist() for r in runs[0][:4]]
+              == [want[k] for k in range(4)],
+              "two scatters under load gave different bits")
+        checks["scatter_twice_under_load"] = True
+
+        # 4. refusals, each typed
+        c = clients[2]
+        chan_wc, chan_inf = c.open("wc"), c.open("infer")
+        env = gw_mod._seal_envelope([gw_mod.GW_MAGIC, chan_inf.sid, c.cid, 0],
+                                    reqs[0], seed=chan_wc.seed, seq=chan_inf.seq,
+                                    device="cuda")
+        resp = c._session.request(env).cpu().numpy()
+        route = resp[:16].view("<u4")
+        try:
+            _raise_remote(resp[16:16 + int(route[3])].tobytes())
+            refused = None
+        except framing.FrameError as e:
+            refused = str(e)
+        check(int(route[1]) == 1 and refused is not None,
+              "a frame sealed under wc's channel was served by infer")
+        checks["foreign_channel_frame"] = refused
+        try:
+            c.call("billing", text)
+            check(False, "a client with no billing key was served")
+        except AccessViolation as e:
+            checks["no_billing_key"] = str(e)
+        bad = framing.seal_batch([make_text(n, seed=n) for n in (3, 4, 5)],
+                                 seed=chan_wc.seed, start_seq=chan_wc.seq,
+                                 device="cuda")
+        bad[1].view(torch.int32)[1, 5] ^= 1 << 9
+        env = torch.cat([torch.from_numpy(gw_mod._batch_route(chan_wc.sid, c.cid, 3))
+                         .cuda()] + [f.reshape(-1).view(torch.uint8) for f in bad])
+        rows = _gw_rows(gw_mod, c._session.request(env), 3)
+        chan_wc.seq += 3
+        check([s for s, _, _ in rows] == [0, 1, 0], f"tampered batch: {rows}")
+        check(rows[2][2] % 16 != 0, "the frame after the error blob is aligned")
+        ok = framing.verify_batch([rows[0][1][0], rows[2][1][0]], seed=chan_wc.seed,
+                                  seqs=[chan_wc.seq - 3, chan_wc.seq - 1])
+        check([parse_count(o) for o in ok] == [3, 5], "tampered batch's good items")
+        checks["tampered_item"] = dict(statuses=[s for s, _, _ in rows],
+                                       next_frame_offset=rows[2][2])
+        victim, bystander = clients[3], clients[4]
+        stale = bystander.open("wc")
+        gw.revoke(victim, "wc")
+        try:
+            bystander._call_once(stale, text)
+            check(False, "a stale key was accepted after a revocation")
+        except AccessViolation as e:
+            check("stale key epoch" in str(e), f"stale key: {e}")
+            checks["stale_key"] = str(e)
+        bystander.reopen("wc")
+        check(parse_count(bystander.call("wc", text)) == 100, "re-keyed call")
+
+        # 5. printed, not asserted: direct calls at 1 and 12 clients, and a
+        # 100-word wc call with infer idle and ticking
+        stop.clear()
+
+        def tick_load(i):   # keeps the engine ticking
+            try:
+                while not stop.is_set():
+                    clients[8 + i].call("infer", reqs[8 + i])
+            except BaseException as e:      # noqa: B036
+                errors.append(repr(e))
+
+        def ticking(fn):
+            stop.clear()
+            loaders = [threading.Thread(target=tick_load, args=(i,))
+                       for i in range(4)]
+            for t in loaders:
+                t.start()
+            try:
+                busy_by = time.perf_counter() + 120
+                ticks1 = eng.ticks
+                while eng.ticks < ticks1 + 4:
+                    check(time.perf_counter() < busy_by, "the engine never got busy")
+                    time.sleep(0.01)
+                return fn()
+            finally:
+                stop.set()
+                for t in loaders:
+                    t.join(timeout=600)
+                check(not errors, f"ticking clients failed: {errors}")
+
+        short = encode_prompt([1, 2, 3, 4], max_new)
+
+        def infer_at(n):
+            return _gw_timed([[lambda c=c: c.call("infer", short)] * (4 if n == 1 else 3)
+                              for c in clients[:n]])
+
+        timings = {"direct_infer_1": infer_at(1), "direct_infer_12": infer_at(n_clients),
+                   "wc_100_idle": _gw_timed([[lambda: clients[0].call("wc", text)] * 50]),
+                   "wc_100_ticking": ticking(lambda: _gw_timed(
+                       [[lambda: clients[0].call("wc", text)] * 50]))}
+
+        # 6. coalesced: 12 concurrent callers fold into cohorts
+        cohorts0 = len(svc.cohorts)
+        gw.enable_coalescing(max_batch=n_clients, max_wait_us=20000.0)
+        got_co = {}
+
+        def co_call(i):
+            try:
+                got_co[i] = clients[i].call("infer", reqs[i]).cpu().tolist()
+            except BaseException as e:      # noqa: B036
+                errors.append(repr(e))
+
+        torch.cuda.synchronize()
+        ops.LAUNCHES.reset()
+        ticks0 = eng.ticks
+        threads_of(co_call, n_clients)
+        count_from(ticks0)
+        cohorts = svc.cohorts[cohorts0:]
+        check(all(got_co[i] == want[i] for i in range(n_clients)),
+              "coalesced tokens differ from serve_frame's")
+        check(cohorts and max(cohorts) > 1, f"no cohort reached the engine: {cohorts}")
+        checks["coalesced_cohorts"] = cohorts
+        timings["coalesced_infer_1"] = infer_at(1)
+        timings["coalesced_infer_12"] = infer_at(n_clients)
+
+        def one_ms():
+            try:
+                clients[5].call("infer", reqs[5], timeout=0.001)
+                check(False, "a 1 ms budget was served")
+            except DeadlineExpired as e:
+                return str(e)
+
+        checks["one_ms_budget"] = ticking(one_ms)
+
+        # 7. a fleet of two in-process mpklink_opt replicas of wc
+        for _ in range(2):
+            gw.register_replica("wcf", wordcount_handler, transport="mpklink_opt")
+        fleet = gw.fleet("wcf")
+        served, drained = [0], {}
+        stop.clear()
+
+        def fleet_call(i):
+            try:
+                k = 0
+                while not stop.is_set() or k < 8:
+                    n = 20 + i * 7 + k
+                    check(parse_count(clients[i].call("wcf", make_text(n, seed=k)))
+                          == n, "a fleet answer came back wrong")
+                    served[0] += 1
+                    k += 1
+            except BaseException as e:      # noqa: B036
+                errors.append(repr(e))
+
+        fl = [threading.Thread(target=fleet_call, args=(i,)) for i in range(4)]
+        for t in fl:
+            t.start()
+        try:
+            time.sleep(0.5)
+            drained["ok"] = gw.drain_replica("wcf", 0, timeout=60)
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            for t in fl:
+                t.join(timeout=600)
+        check(not errors, f"fleet calls were lost: {errors}")
+        snap = gw.fleet_stats()["wcf"]
+        check(drained["ok"] and snap[0]["state"] == "quiesced"
+              and snap[0]["inflight"] == 0, f"drain: {snap}")
+        checks["fleet"] = dict(calls=served[0], lost=0,
+                               routed=dict(fleet.router.assigned), replicas=snap)
+    finally:
+        gw.close()
+        svc.close()
+
+    # 8. non-greedy sampling with seeded CUDA generators
+    def sampled(seed):
+        e = ServingEngine(cfg, eng.params, max_batch=4, max_seq=128,
+                          dtype=torch.bfloat16, device="cuda", greedy=False,
+                          seed=seed)
+        for i, p in enumerate(prompts[:4]):
+            e.submit(Request(rid=i, prompt=p, max_new=8))
+        out = {r.rid: r.generated for r in e.run_until_drained()}
+        check(e.generator.device.type == "cuda", "the generator is not on the card")
+        return out
+
+    s1, s1b, s2 = sampled(1), sampled(1), sampled(2)
+    check(all(0 <= t < cfg.vocab_size for g in s1.values() for t in g)
+          and all(len(g) == 8 for g in s1.values()), "sampled tokens out of range")
+    check(s1 == s1b, "the same seed gave other tokens")
+    check(s1 != s2, "another seed gave the same tokens")
+    checks["sampling"] = dict(seed1=[s1[i] for i in range(4)],
+                              seed2=[s2[i] for i in range(4)])
+    emit(phase="gateway", arch=cfg.name, layers=cfg.num_layers, dtype="bfloat16",
+         max_batch=8, max_seq=1024, clients=n_clients, max_new=max_new,
+         workers=2, transport="mpklink_opt", card=smi, cpu_count=os.cpu_count(),
+         ticks_counted=ticks_counted, launches=counted, checks=checks,
+         timings=timings, wall_s=time.perf_counter() - t_phase)
+    del eng, svc
+    torch.cuda.empty_cache()
+    return counted
+
+
+# ---------------------------------------------------------------------------
 # ipc: the paper's word count over the six transports
 # ---------------------------------------------------------------------------
 
@@ -2250,6 +2698,7 @@ def main():
     add(phase_padded(smollm, SMOLLM_PADS))
     counts, attn_inputs = phase_serve(llama, sessions=True)
     add(counts)
+    add(phase_gateway(llama, smi))
     for cfg in (mamba, zamba, olmo, smollm, qwen3, mixtral, llava):
         add(phase_serve(cfg, n_clients=8)[0])
     add(phase_decode(whisper, B=8, max_seq=WHISPER_TEXT))

@@ -473,15 +473,18 @@ def _check_fields(header: list, n_rows: int) -> dict:
     return {"dtype_code": dtype_code, "nbytes": nbytes, "shape": shape}
 
 
-def verify_view(frame: torch.Tensor, *, seed: int,
-                expect_seq=None) -> torch.Tensor:
+def verify_view(frame: torch.Tensor, *, seed: int, expect_seq=None,
+                header: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The full receive-side guard: header prechecks, then the
     ``guard_copy`` kernel (MAC + protected copy of the payload in one
     pass), then the metadata checks. Returns the payload as a tensor of
     the frame's dtype and shape, a view of the guarded copy (so later
-    writes to ``frame`` cannot reach it). Raises :class:`FrameError`."""
+    writes to ``frame`` cannot reach it). ``header`` is the frame's header
+    row as host words when the caller has already read it (a gateway reads
+    it with its route words); otherwise it is read here. Raises
+    :class:`FrameError`."""
     _check_shape(frame)
-    header = frame[0].cpu().tolist()
+    header = frame[0].cpu().tolist() if header is None else list(header)
     _precheck(header, seed, expect_seq)
     copy, _, ok = ops.guard_copy(frame[1:], seed & MASK32,
                                  _expected_mac(header, seed))
@@ -497,15 +500,28 @@ def verify_view(frame: torch.Tensor, *, seed: int,
 parse_frame = verify_view
 
 
+def header_rows(frames: Sequence[torch.Tensor]) -> List[list]:
+    """The header rows of N frames on one device as host word lists, in
+    one device-to-host copy."""
+    if not frames:
+        return []
+    return (torch.stack([f[0].view(torch.int32) for f in frames])
+            .cpu().numpy().view(np.uint32).tolist())
+
+
 def verify_batch(frames: Sequence[torch.Tensor], *, seed: int,
                  seqs: Optional[Sequence[int]] = None,
                  start_seq: Optional[int] = None,
-                 strict: bool = True) -> List[Union[torch.Tensor, FrameError]]:
+                 strict: bool = True,
+                 headers: Optional[Sequence[Sequence[int]]] = None
+                 ) -> List[Union[torch.Tensor, FrameError]]:
     """Receive-side guard for N frames with one ``mac_batch`` launch per
     row count. With ``strict=True`` the first bad frame raises (message
     prefixed with its batch index); with ``strict=False`` the list carries
     the ``FrameError`` in that frame's position. Payloads are views of the
-    frames. The header rows are read back in one device-to-host copy."""
+    frames. The header rows are read back in one device-to-host copy, or
+    taken from ``headers`` (host words, one list a frame) when the caller
+    has read them already."""
     if seqs is None and start_seq is not None:
         seqs = [start_seq + i for i in range(len(frames))]
     out: List[Union[torch.Tensor, FrameError, None]] = [None] * len(frames)
@@ -522,8 +538,8 @@ def verify_batch(frames: Sequence[torch.Tensor], *, seed: int,
             shaped.append(i)
         except FrameError as e:
             refuse(i, e)
-    rows = (torch.stack([frames[i][0].view(torch.int32) for i in shaped])
-            .cpu().numpy().view(np.uint32).tolist() if shaped else [])
+    rows = (header_rows([frames[i] for i in shaped]) if headers is None
+            else [list(headers[i]) for i in shaped])
     headers: Dict[int, list] = {}
     for i, header in zip(shaped, rows):
         try:

@@ -249,30 +249,36 @@ def _flat(obj):
             yield x
 
 
-def _on_stream(fn):
-    """Run a client-side method of a region session on its transport's
-    stream: a CUDA payload it takes is ordered after the caller's stream,
-    and a CUDA tensor it returns is ordered before the caller's stream and
+def _stream_method(stream_of):
+    """Decorate a method to run on the stream ``stream_of(self)`` (CUDA):
+    the caller's stream is waited on first (payloads it wrote), and a CUDA
+    tensor the method returns is ordered before the caller's stream and
     recorded on it (so the allocator does not hand its memory to the data
-    plane while the caller still reads it)."""
-    @functools.wraps(fn)
-    def run(self, *args, **kw):
-        s = self.transport.stream
-        if s is None:
-            return fn(self, *args, **kw)
-        caller = torch.cuda.current_stream(s.device)
-        if caller == s:                 # re-entered from a method that is in
-            return fn(self, *args, **kw)
-        if any(isinstance(t, torch.Tensor) and t.is_cuda for t in _flat(args)):
+    plane while the caller still reads it). Re-entry from a method that is
+    already on the stream runs directly."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def run(self, *args, **kw):
+            s = stream_of(self)
+            if s is None:
+                return fn(self, *args, **kw)
+            caller = torch.cuda.current_stream(s.device)
+            if caller == s:
+                return fn(self, *args, **kw)
             s.wait_stream(caller)
-        with torch.cuda.stream(s):
-            out = fn(self, *args, **kw)
-        caller.wait_stream(s)
-        for t in _flat(out):
-            if isinstance(t, torch.Tensor) and t.is_cuda:
-                t.record_stream(caller)
-        return out
-    return run
+            with torch.cuda.stream(s):
+                out = fn(self, *args, **kw)
+            caller.wait_stream(s)
+            for t in _flat(out):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    t.record_stream(caller)
+            return out
+        return run
+    return deco
+
+
+# a client-side method of a region session runs on its transport's stream
+_on_stream = _stream_method(lambda session: session.transport.stream)
 
 
 # ---------------------------------------------------------------------------
@@ -553,8 +559,9 @@ class Session:
         """Producer exchange: ``fill(dst)`` writes the ``nbytes`` message
         into the transport's staging storage (a uint8 view of the request
         region on mpklink), then the exchange proceeds like
-        :meth:`request`. This fallback stages one host buffer."""
-        buf = torch.empty(nbytes, dtype=torch.uint8)
+        :meth:`request`. This fallback stages one buffer on the
+        transport's device."""
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
         fill(buf)
         return self.request(buf, timeout=timeout)
 

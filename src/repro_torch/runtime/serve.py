@@ -19,10 +19,13 @@ sliding window (a ring cache takes one position for the whole batch, and
 resetting a slot's row would corrupt its slot positions) and an
 encoder-decoder model (whose state needs an encoder output per request).
 
-Sampling is greedy (the reference's ``greedy=False`` path is not ported).
-Nor are the replica-fleet helpers (``fleet_handler``,
-``register_engine_fleet``): they fork service processes, and CUDA must not
-be initialised in a process before it forks (see ROADMAP.md).
+Sampling is greedy by default; with ``greedy=False`` each tick samples the
+last logits' categorical through a ``torch.Generator`` on the logits'
+device, seeded from ``seed`` (JAX's PRNG stream is not reproduced, so the
+two packages agree in distribution, not token for token). The
+replica-fleet helpers (``fleet_handler``, ``register_engine_fleet``) are
+not ported: they fork service processes, and CUDA must not be initialised
+in a process before it forks (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -63,11 +66,14 @@ class Request:
 
 class ServingEngine:
     """``params`` must lie on ``device``; the decode state is allocated
-    there. The KV caches are updated in place every tick."""
+    there. The KV caches are updated in place every tick. ``greedy=False``
+    samples from ``softmax(logits)`` with a generator seeded from
+    ``seed``."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  max_seq: int = 256, impl: Impl = Impl(),
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", greedy: bool = True,
+                 seed: int = 0):
         if cfg.swa_window is not None and max_seq > cfg.swa_window:
             raise ValueError("ring caches need uniform positions; lower "
                              "max_seq or use a dense model")
@@ -79,6 +85,8 @@ class ServingEngine:
         self.cfg, self.params = cfg, params
         self.B, self.max_seq = max_batch, max_seq
         self.impl, self.dtype = impl, dtype
+        self.greedy = greedy
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         state = init_decode_state(cfg, max_batch, max_seq, dtype=dtype,
                                   device=self.device)
@@ -135,7 +143,7 @@ class ServingEngine:
             logits, self.state = decode_step(self.cfg, self.params, self.state,
                                              tokens, impl=self.impl,
                                              dtype=self.dtype)
-        nxt = logits[:, -1].argmax(-1).cpu().numpy()      # greedy
+        nxt = self.sample(logits[:, -1]).cpu().numpy()
         self.ticks += 1
 
         for b, req in enumerate(self.slots):
@@ -155,6 +163,14 @@ class ServingEngine:
                     or pos >= self.max_seq - 1):
                 self._retire(b)
         return True
+
+    def sample(self, last: torch.Tensor) -> torch.Tensor:
+        """Next tokens (B,) from the last logits (B, V): the argmax, or a
+        draw from their categorical with the engine's generator."""
+        if self.greedy:
+            return last.argmax(-1)
+        probs = torch.softmax(last.float(), dim=-1)
+        return torch.multinomial(probs, 1, generator=self.generator)[:, 0]
 
     def run_until_drained(self, max_ticks: int = 10_000):
         while (self.queue or any(s is not None for s in self.slots)) \
