@@ -102,6 +102,30 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              Printed, not asserted: requests/s and p50/p99 of calls at 1
              and 12 clients, direct and coalesced, and of a 100-word wc
              call with infer idle and ticking, beside ``os.cpu_count()``.
+   proc    — every service in a process of its own (``core.procwire``,
+             children from a forkserver, the slab shared through CUDA
+             IPC): the word count at 1e2, 1e4 and 1e6 words (3 reps, each
+             request's bits compared) over mpklink_opt_proc, mpklink_proc,
+             shm_proc (refuses 1e6, CapacityError), rest and sockrpc:
+             exact counts; key syncs and guard launches a request in the
+             parent and in the child (its published launch words) equal
+             to ``launch.ipc_wordcount``'s; a response sealed in the child
+             equal, word for word, to the plain seal on the CPU. The
+             paper's comparison, printed, not asserted: 16 clients of 1e4
+             words, one session each, requests/s and p50/p99 for
+             mpklink_opt_proc, rest and sockrpc and the mpklink/REST ratio.
+             llama3.2-1b (full, bf16, max_batch 8, max_seq 1024) in two
+             replica processes (``register_engine_fleet``) behind
+             ``ServiceGateway("mpklink_opt")``: 12 clients' tokens equal
+             the same seeded engine's through ``serve_frame`` in this
+             process; decode attention once per attention block a tick in
+             each child (``FLEET_STATS``). Then kill -9 of one child under
+             4 client threads: every call correct or typed;
+             ``FleetSupervisor(target=2)`` brings the replica back; tokens
+             after the restart match; after close no ``mpk_`` segment and
+             no child is left. Last, ``ServiceGateway("mpklink_opt_proc")``
+             (the gateway in its own child) under a FaultPlan of all eight
+             kinds: every fault typed as expected, every wait bounded.
    decode  — uniform decode through ``make_decode_step`` (bf16, 8 rows,
              64 ticks): whisper-tiny from its encoder output and cross K/V
              built once (8 decode-attention launches a tick), llava at full
@@ -139,7 +163,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
 Then a ``kernels`` JSON line (times from CUDA events, bounds from this
 run's inputs, launches summed over the ipc, prefill, serve, gateway,
-decode and train phases; the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
+proc (the parent's and the children's), decode and train phases; the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
 replaced timed in this run, and the two backwards the design each replaced
 (flash: ``mma.sync``; SSD: the per-head chunk kernel, also
 ``earlier_pass_ms``); the four add ``kernels_per_call``, the kernel
@@ -1736,6 +1760,463 @@ def phase_gateway(cfg, smi, n_clients=12, max_new=16):
 # ipc: the paper's word count over the six transports
 # ---------------------------------------------------------------------------
 
+PROC_WORDS = (100, 10_000, 1_000_000)
+PROC_NAMES = ("mpklink_opt_proc", "mpklink_proc", "shm_proc", "rest", "sockrpc")
+
+
+def _child_delta(before, after):
+    """Launch counts a child published between two readings (its words
+    wrap at 2**32)."""
+    return {k: (after[k] - before[k]) & 0xFFFFFFFF for k in after
+            if (after[k] - before[k]) & 0xFFFFFFFF}
+
+
+def _in_threads(fn, args, timeout=600):
+    """``fn(a)`` for every ``a`` of ``args``, each on a thread of its own
+    (service children start side by side: each pays for a CUDA context);
+    raises with the first failures."""
+    errors = []
+
+    def run(a):
+        try:
+            fn(a)
+        except BaseException as e:              # noqa: B036 — reported below
+            errors.append(repr(e))
+
+    ts = [threading.Thread(target=run, args=(a,)) for a in args]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=timeout)
+    check(not errors and all(not t.is_alive() for t in ts),
+          f"threads failed: {errors[:3]}")
+
+
+def _proc_transport(name, handler, timeout=120.0):
+    """One of the five process transports on the card; the mpklink pair
+    gets room for a 1e6-word request (8 MiB a direction, a ring of 2) and
+    keys for more than 16 sessions."""
+    from repro_torch.core import ALL_TRANSPORTS
+    kw = {"capacity": 8 << 20, "ring_slots": 2, "max_keys": 64} \
+        if "mpklink" in name else {}
+    return ALL_TRANSPORTS[name](handler, timeout=timeout, **kw)
+
+
+def proc_wordcount(smi, launches):
+    """The paper's word count over the five process transports at 1e2, 1e4
+    and 1e6 words, 3 reps each, each request's bits compared across the
+    reps: exact counts; shm_proc refuses 1e6 words (CapacityError) as the
+    reference does; key syncs and guard launches a request, in the parent
+    and in the service child, equal the code's counts; a response sealed
+    in the child equals, word for word, the plain version's seal of the
+    same bytes, seed and sequence on the CPU."""
+    from repro_torch.core import framing, procwire
+    from repro_torch.core.transports import CapacityError
+    from repro_torch.core.wordcount import parse_count, wordcount_handler
+    from repro_torch.kernels import ops
+    from repro_torch.launch import ipc_wordcount as ipc
+
+    rows, t_phase = [], time.perf_counter()
+    trs = {name: _proc_transport(name, wordcount_handler) for name in PROC_NAMES}
+    try:
+        sessions = {name: tr.connect() for name, tr in trs.items()}
+        # children start, workspaces: untimed, side by side
+        _in_threads(lambda s: s.request(ipc.text_of(1)), sessions.values())
+    except BaseException:
+        for tr in trs.values():
+            tr.close()
+        raise
+    for name in PROC_NAMES:
+        tr, s = trs[name], sessions[name]
+        try:
+            mpk = name in ipc.MPK_PROC
+            for n in PROC_WORDS:
+                text = ipc.text_of(n)
+                if name == "shm_proc" and text.nbytes > tr.capacity:
+                    try:
+                        s.request(text)
+                    except CapacityError:
+                        rows.append(dict(transport=name, words=n, refused=True))
+                        continue
+                    check(False, f"shm_proc served {n} words past its capacity")
+                want_p, want_c = ipc.proc_launches(name, text.nbytes, tr.device)
+                ts, bits = [], set()
+                for _ in range(3):
+                    syncs0 = getattr(s, "sync_count", 0)
+                    child0 = s.child_launches() if mpk or name == "shm_proc" else None
+                    torch.cuda.synchronize()
+                    ops.LAUNCHES.reset()
+                    t_seq = getattr(s, "_seq", None)
+                    t0 = time.perf_counter()
+                    resp = s.request(text)
+                    ts.append(time.perf_counter() - t0)
+                    got_p = {k: v for k, v in ops.LAUNCHES.snapshot().items() if v}
+                    check(parse_count(resp) == n, f"{name}: {n} words counted wrong")
+                    bits.add(resp.cpu().numpy().tobytes())
+                    syncs = getattr(s, "sync_count", 0) - syncs0
+                    check(syncs == ipc.lockstep_syncs(tr, text.nbytes),
+                          f"{name} at {n} words: {syncs} key syncs, the code gives "
+                          f"{ipc.lockstep_syncs(tr, text.nbytes)}")
+                    got_c = _child_delta(child0, s.child_launches()) \
+                        if child0 is not None else {}
+                    check(got_p == want_p and got_c == want_c,
+                          f"{name} at {n} words: launches {got_p} / child {got_c}, "
+                          f"the code gives {want_p} / {want_c}")
+                    for k, v in list(got_p.items()) + list(got_c.items()):
+                        launches[k] = launches.get(k, 0) + v
+                    if mpk:
+                        # the child's response frame, against the plain seal
+                        b = procwire.PROC_CTRL_WORDS + (s._tickets - 1) % s._nslots \
+                            * procwire.PROC_SLOT_WORDS
+                        w = s._w
+                        off, r = w[b + procwire._S_RESP_OFF], w[b + procwire._S_RESP_ROWS]
+                        frame = s._slab[off:off + r].cpu()
+                        plain = framing.build_frame(resp.cpu(), seed=s.seed,
+                                                    seq=t_seq, device="cpu")
+                        check(torch.equal(frame.view(torch.int32),
+                                          plain.view(torch.int32)),
+                              f"{name}: a response sealed in the child differs "
+                              f"from the plain seal on the CPU")
+                check(len(bits) == 1, f"{name} at {n} words: reps differ")
+                p50 = sorted(ts)[1] * 1e3
+                rows.append(dict(transport=name, words=n, ms_p50=p50,
+                                 key_syncs=ipc.lockstep_syncs(tr, text.nbytes),
+                                 parent_launches=want_p, child_launches=want_c))
+            s.close()
+        finally:
+            tr.close()
+    emit(phase="proc_wordcount", card=smi, cpu_count=os.cpu_count(), rows=rows,
+         wall_s=time.perf_counter() - t_phase)
+
+
+def proc_comparison(smi, n_clients=16, per_client=20, n_words=10_000):
+    """The paper's headline comparison across a process boundary: 16
+    clients in a closed loop, one session each, on 1e4-word requests, for
+    mpklink_opt_proc, rest and sockrpc. Printed, not asserted (the
+    reference's 2x gate is reported as a ratio)."""
+    from repro_torch.core.wordcount import parse_count, wordcount_handler
+    from repro_torch.launch import ipc_wordcount as ipc
+
+    text = ipc.text_of(n_words)
+    out, t_phase = {}, time.perf_counter()
+
+    def warm(s):
+        check(parse_count(s.request(text)) == n_words, f"{s.name} warm-up")
+
+    for name in ("mpklink_opt_proc", "rest", "sockrpc"):
+        tr = _proc_transport(name, wordcount_handler)
+        lat, errors = [], []
+        try:
+            sessions = [tr.connect(f"c{i}") for i in range(n_clients)]
+            _in_threads(warm, sessions)         # child starts: untimed
+            barrier = threading.Barrier(n_clients + 1)
+
+            def client(s):
+                try:
+                    barrier.wait()
+                    for _ in range(per_client):
+                        t0 = time.perf_counter()
+                        resp = s.request(text)
+                        lat.append(time.perf_counter() - t0)
+                        check(parse_count(resp) == n_words, "a count came back wrong")
+                except BaseException as e:      # noqa: B036 — reported below
+                    errors.append(repr(e))
+
+            ts = [threading.Thread(target=client, args=(s,)) for s in sessions]
+            for t in ts:
+                t.start()
+            barrier.wait()
+            t0 = time.perf_counter()
+            for t in ts:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+            check(not errors and all(not t.is_alive() for t in ts),
+                  f"{name}: clients failed {errors[:3]}")
+            p50, p99 = _pcts(lat)
+            out[name] = dict(rps=n_clients * per_client / wall, p50_ms=p50,
+                             p99_ms=p99)
+            for s in sessions:
+                s.close()
+        finally:
+            tr.close()
+    ratio = out["mpklink_opt_proc"]["rps"] / out["rest"]["rps"]
+    emit(phase="proc_comparison", card=smi, cpu_count=os.cpu_count(),
+         clients=n_clients, words=n_words, results=out,
+         mpklink_opt_proc_over_rest=ratio, wall_s=time.perf_counter() - t_phase)
+    print(f"# proc comparison: mpklink_opt_proc/rest requests/s = {ratio:.3f} "
+          f"(the reference's gate asks >= 2; cpu_count {os.cpu_count()}; {smi})",
+          flush=True)
+
+
+def _tokens(t):
+    """Generated tokens from a response: int32 words, whether it comes back
+    typed or as its bytes (a replica process answers with bytes)."""
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8) \
+        .view(torch.int32).tolist()
+
+
+def proc_replicas(cfg, smi, launches, n_clients=12, max_new=16):
+    """llama3.2-1b at full width and depth (bf16, max_batch 8, max_seq
+    1024) in two replica processes behind the port's gateway on the card:
+    greedy tokens of 12 clients equal the same seeded engine's through
+    ``transports.serve_frame`` in the parent; each child launches decode
+    attention once per attention block a tick. Then ``kill -9`` one
+    replica's child under 4 client threads: every call completes correctly
+    or raises a typed error, ``FleetSupervisor(target=2)`` brings the
+    replica back, and tokens after the restart still match. Then
+    everything closes: no ``mpk_`` segment and no child is left."""
+    import functools
+    import multiprocessing
+    import signal
+
+    from repro_torch.core import ServiceGateway, framing, transports
+    from repro_torch.core.gateway import REPLICA_ACTIVE, FleetSupervisor
+    from repro_torch.core.transports import TransportError
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import (EngineService, encode_prompt,
+                                     register_engine_fleet, seeded_engine)
+    from repro_torch.runtime.serve import FLEET_STATS
+
+    factory = functools.partial(seeded_engine, cfg.name, SEED, max_batch=8,
+                                max_seq=1024, dtype="bfloat16")
+    rng = torch.Generator().manual_seed(SEED + 9)
+    prompts = [torch.randint(0, cfg.vocab_size, (8 + (40 * i) // 11,),
+                             generator=rng).tolist() for i in range(n_clients)]
+    reqs = [encode_prompt(p, max_new) for p in prompts]
+    short = [encode_prompt(p[:8], 4) for p in prompts[:4]]
+    n_attn = decode_blocks(cfg)
+
+    # the oracle: the same seeded engine in this process, through the
+    # service step with no gateway
+    t_phase = time.perf_counter()
+    svc = EngineService(factory(), timeout=600).start()
+    try:
+        oracle = {}
+
+        def serve(i):
+            frame = framing.build_frame((reqs + short)[i], seed=SEED, seq=i,
+                                        device="cuda")
+            resp = transports.serve_frame(frame, svc.handler, seed=SEED, seq=i)
+            oracle[i] = _tokens(framing.verify_view(resp, seed=SEED,
+                                                    expect_seq=i))
+
+        _in_threads(serve, range(len(reqs) + len(short)))
+        want = [oracle[i] for i in range(n_clients)]
+        want_short = [oracle[n_clients + i] for i in range(len(short))]
+    finally:
+        svc.close()
+        del svc
+        torch.cuda.empty_cache()
+
+    def stats(rep):
+        with rep.rlock:
+            doc = rep.session.request(FLEET_STATS)
+        return json.loads(doc.cpu().numpy().tobytes())
+
+    gw = ServiceGateway("mpklink_opt", max_keys=1024,
+                        transport_kwargs={"timeout": 600})
+    sup = None
+    try:
+        register_engine_fleet(gw, "infer", factory, replicas=2,
+                              transport_kwargs={"timeout": 600})
+        gw.start()
+        fleet = gw.fleet("infer")
+        t0 = time.perf_counter()
+
+        def warm(rep):                          # child, CUDA context, engine
+            with rep.rlock:
+                rep.session.request(encode_prompt(prompts[0][:2], 1))
+
+        _in_threads(warm, list(fleet._replicas.values()))
+        warm_s = time.perf_counter() - t0
+        before = {rid: stats(rep) for rid, rep in fleet._replicas.items()}
+        clients = [gw.connect(f"client-{i}") for i in range(n_clients)]
+        got, errors = {}, []
+
+        def call(i):
+            try:
+                got[i] = _tokens(clients[i].call("infer", reqs[i]))
+            except BaseException as e:          # noqa: B036 — reported below
+                errors.append(repr(e))
+
+        torch.cuda.synchronize()
+        ops.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=call, args=(i,)) for i in range(n_clients)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        serve_s = time.perf_counter() - t0
+        check(not errors, f"replica clients failed: {errors[:3]}")
+        check([got[i] for i in range(n_clients)] == want,
+              "tokens through two replica processes differ from serve_frame's")
+        torch.cuda.synchronize()
+        parent = {k: v for k, v in ops.LAUNCHES.snapshot().items() if v}
+        for k, v in parent.items():
+            launches[k] = launches.get(k, 0) + v
+        per_child = {}
+        for rid, rep in fleet._replicas.items():
+            after = stats(rep)
+            ticks = after["ticks"] - before[rid]["ticks"]
+            d = _child_delta(before[rid]["launches"], after["launches"])
+            on_card = gw.device.type == "cuda"
+            check(d.get("decode_attention", 0) == n_attn * ticks * on_card,
+                  f"replica {rid}: {d.get('decode_attention', 0)} decode-attention "
+                  f"launches in {ticks} ticks, want {n_attn} a tick")
+            per_child[rid] = dict(ticks=ticks, launches=d,
+                                  card_bytes=after["card_bytes"])
+            for k, v in d.items():
+                launches[k] = launches.get(k, 0) + v
+        check(sum(c["ticks"] for c in per_child.values()) > 0
+              and all(c["ticks"] for c in per_child.values()),
+              f"a replica served nothing: {per_child}")
+        emit(phase="proc_replicas", card=smi, cpu_count=os.cpu_count(),
+             replicas=2, clients=n_clients, warm_s=warm_s, serve_s=serve_s,
+             parent_launches=parent, children=per_child)
+
+        # recovery under traffic
+        sup = FleetSupervisor(gw, "infer", target=2, interval=0.2,
+                              probe_timeout=300.0).start()
+        outcomes, stop = [], threading.Event()
+        lock = threading.Lock()
+
+        def traffic(i):
+            cli = gw.connect(f"traffic-{i}", retries=3)
+            try:
+                while not stop.is_set():
+                    try:
+                        out = _tokens(cli.call("infer", short[i]))
+                        rec = ("ok", out)
+                    except TransportError as e:   # typed: allowed
+                        rec = ("typed", type(e).__name__)
+                    except BaseException as e:     # noqa: B036 — must not happen
+                        rec = ("untyped", repr(e))
+                    with lock:
+                        outcomes.append((i, rec))
+            finally:
+                cli.close()
+
+        ts = [threading.Thread(target=traffic, args=(i,)) for i in range(4)]
+        for t in ts:
+            t.start()
+        deadline = time.monotonic() + 120
+        while len(outcomes) < 8 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        victim = fleet._replicas[1]
+        os.kill(victim.session._proc.pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        healed_s = None
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            active = [r for r in fleet.snapshot() if r["state"] == "active"]
+            if sup.stats["respawns"] >= 1 and len(active) == 2:
+                healed_s = time.perf_counter() - t_kill
+                break
+            time.sleep(0.1)
+        time.sleep(1.0)                         # traffic over the healed set
+        stop.set()
+        for t in ts:
+            t.join(timeout=600)
+        sup.stop()
+        check(healed_s is not None,
+              f"the supervisor did not bring the replica back: {sup.stats} "
+              f"{fleet.snapshot()}")
+        bad = [o for o in outcomes if o[1][0] == "untyped"]
+        check(not bad, f"untyped failures under kill -9: {bad[:3]}")
+        oks = [(i, rec[1]) for i, rec in outcomes if rec[0] == "ok"]
+        check(all(out == want_short[i] for i, out in oks),
+              "tokens under kill -9 differ from serve_frame's")
+        # after the restart: through the gateway, and every live replica
+        cli = gw.connect("after-restart")
+        check([_tokens(cli.call("infer", r)) for r in short] == want_short,
+              "tokens after the restart differ from serve_frame's")
+        cli.close()
+        live = [(rid, rep) for rid, rep in fleet._replicas.items()
+                if rep.state == REPLICA_ACTIVE]
+        check(len(live) == 2, f"{len(live)} active replicas after the restart")
+        for rid, rep in live:
+            with rep.rlock:
+                alone = _tokens(rep.session.request(short[0]))
+            check(alone == want_short[0], f"replica {rid} after the restart differs")
+        typed = sum(1 for o in outcomes if o[1][0] == "typed")
+        emit(phase="proc_recovery", card=smi, cpu_count=os.cpu_count(),
+             calls=len(outcomes), ok=len(oks), typed=typed,
+             healed_s=healed_s, supervisor=dict(sup.stats),
+             wall_s=time.perf_counter() - t_phase)
+    finally:
+        if sup is not None:
+            sup.stop()
+        gw.close()
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        kids = multiprocessing.active_children()
+        segs = [f for f in os.listdir("/dev/shm")
+                if f.startswith(f"mpk_{os.getpid()}_")]
+        if not kids and not segs:
+            break
+        time.sleep(0.1)
+    check(not kids and not segs,
+          f"after close: children {[k.pid for k in kids]}, segments {segs}")
+
+
+def proc_gateway_child(smi, n_requests=32):
+    """``ServiceGateway("mpklink_opt_proc")``: the gateway itself runs in a
+    service process on the card, with the word count; a FaultPlan of all
+    eight kinds (32 requests at rate 0.25: each kind once) through
+    FaultyClient: every fault typed as EXPECTED (a crash kills the child,
+    the heal starts a fresh one), every wait bounded."""
+    from repro_torch.core import ServiceGateway
+    from repro_torch.core.faultwire import (EXPECTED, FaultFabric, FaultPlan,
+                                            FaultyClient)
+    from repro_torch.core.wordcount import make_text, parse_count, wordcount_handler
+
+    plan = FaultPlan(seed=2024, n_requests=n_requests, rate=0.25)
+    gw = ServiceGateway("mpklink_opt_proc", transport_kwargs={"timeout": 1.0})
+    gw.register_service("wordcount", wordcount_handler)
+    gw.start()
+    fab = FaultFabric(plan).attach(gw)
+    fc = FaultyClient(gw.connect("chaos"), fab, "wordcount")
+    t0 = time.perf_counter()
+    try:
+        for i in range(n_requests):
+            n = 4 + i % 9
+            out = fc.step(make_text(n, seed=i))
+            if out.status == "ok":
+                check(parse_count(out.value) == n, f"wrong count at {i}")
+    finally:
+        wall = time.perf_counter() - t0
+        gw.close()
+    counts = fc.counts()
+    check(counts["error"] == 0, f"untyped or collateral failures: {counts} — "
+          f"{plan.describe()}")
+    check({e.kind for e in plan.events.values()} == set(EXPECTED),
+          "the plan does not hold every fault kind")
+    check(all(isinstance(o.value, EXPECTED[o.kind]) for o in fc.outcomes
+              if o.status == "fault"), "a fault surfaced with the wrong type")
+    check(wall < 120, f"fault run took {wall:.1f} s")
+    emit(phase="proc_gateway_child", card=smi, requests=n_requests,
+         faults=len(plan.events), outcomes=counts, wall_s=wall)
+
+
+def phase_proc(cfg, smi):
+    """Every service in a process of its own (``core.procwire``), on the
+    card: the word count over the five process transports, the paper's
+    16-client comparison (printed), two llama3.2-1b replica processes with
+    their tokens, launches and recovery after ``kill -9``, and a gateway
+    that runs in its child under all eight fault kinds. → the kernel
+    launches of the checked runs, the parent's and the children's."""
+    t0 = time.perf_counter()
+    launches = {}
+    proc_wordcount(smi, launches)
+    proc_comparison(smi)
+    proc_replicas(cfg, smi, launches)
+    proc_gateway_child(smi)
+    emit(phase="proc_done", card=smi, cpu_count=os.cpu_count(),
+         wall_s=time.perf_counter() - t0)
+    return launches
+
+
 def phase_ipc(smi):
     """``launch.ipc_wordcount`` on the card: the six transports at 1e2 to
     1e7 words (3 reps, median) and uds, mpklink and mpklink_opt at 1e8 (1
@@ -2699,6 +3180,7 @@ def main():
     counts, attn_inputs = phase_serve(llama, sessions=True)
     add(counts)
     add(phase_gateway(llama, smi))
+    add(phase_proc(llama, smi))
     for cfg in (mamba, zamba, olmo, smollm, qwen3, mixtral, llava):
         add(phase_serve(cfg, n_clients=8)[0])
     add(phase_decode(whisper, B=8, max_seq=WHISPER_TEXT))

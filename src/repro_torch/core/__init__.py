@@ -1,20 +1,20 @@
 """MPKLink in the port: domains and keys (``domains``), identities and
 channel grants (``ca``, ``signature``), frames and their MACs
 (``framing``), the paper's IPC transport zoo (``transports``), its
-word-count workload (``wordcount``) and the service gateway
-(``gateway``: named services, clients, the coalescer, QoS and in-process
-replica fleets).
+word-count workload (``wordcount``), the service gateway (``gateway``:
+named services, clients, the coalescer, QoS, replica fleets and their
+supervisor), the process transports and the REST / socket-RPC baselines
+(``procwire``) and the fault-injection fabric (``faultwire``).
 
 ``ALL_TRANSPORTS`` is what a gateway or a fleet resolves a transport name
-against. In the reference it adds the process transports of ``procwire``
-(``*_proc``) to ``TRANSPORTS``; the port has none yet (ROADMAP.md, queue
-1, item 3), so the two are equal, and a ``*_proc`` name raises
-``gateway.ProcTransportNotPorted``."""
+against: the in-process ``TRANSPORTS`` plus ``procwire``'s
+``PROC_TRANSPORTS`` (``*_proc``) and ``BASELINE_TRANSPORTS``."""
 from repro_torch.core import ca, domains, framing, gateway, signature, transports, wordcount
 from repro_torch.core.domains import (AccessViolation, DomainKey, KeyRegistry,
                                       ProtectionDomain, READ, RW, WRITE, mac_seed)
-from repro_torch.core.gateway import (CallCoalescer, GatewayClient, Replica,
-                                      ReplicaRouter, ServiceFleet, ServiceGateway,
+from repro_torch.core.gateway import (CallCoalescer, FleetSupervisor,
+                                      GatewayClient, Replica, ReplicaRouter,
+                                      ServiceFleet, ServiceGateway,
                                       ServiceHealth, simulate_assignments)
 
 TRANSPORTS = {
@@ -25,11 +25,27 @@ TRANSPORTS = {
     "mpklink": transports.MPKLinkTransport,
     "mpklink_opt": transports.MPKLinkOptTransport,
 }
-ALL_TRANSPORTS = dict(TRANSPORTS)
 
-__all__ = ["ca", "domains", "framing", "gateway", "signature", "transports",
-           "wordcount", "AccessViolation", "DomainKey", "KeyRegistry",
-           "ProtectionDomain", "READ", "RW", "WRITE", "mac_seed", "TRANSPORTS",
-           "ALL_TRANSPORTS", "CallCoalescer", "GatewayClient", "Replica",
-           "ReplicaRouter", "ServiceFleet", "ServiceGateway", "ServiceHealth",
-           "simulate_assignments"]
+# process-backed transports and the REST / socket-RPC baselines, kept out
+# of TRANSPORTS so the in-process matrix keeps its semantics
+from repro_torch.core import procwire                # noqa: E402
+from repro_torch.core.procwire import (BASELINE_TRANSPORTS,  # noqa: E402
+                                       PROC_TRANSPORTS)
+
+ALL_TRANSPORTS = {**TRANSPORTS, **PROC_TRANSPORTS, **BASELINE_TRANSPORTS}
+
+from repro_torch.core import faultwire               # noqa: E402
+from repro_torch.core.faultwire import (FaultFabric, FaultPlan,  # noqa: E402
+                                        FaultyClient)
+from repro_torch.core.transports import (ResponseTimeout,  # noqa: E402
+                                         ServiceCrashed, ServiceUnavailable)
+
+__all__ = ["ca", "domains", "framing", "gateway", "faultwire", "procwire",
+           "signature", "transports", "wordcount", "AccessViolation",
+           "DomainKey", "KeyRegistry", "ProtectionDomain", "READ", "RW",
+           "WRITE", "mac_seed", "TRANSPORTS", "PROC_TRANSPORTS",
+           "BASELINE_TRANSPORTS", "ALL_TRANSPORTS", "CallCoalescer",
+           "FleetSupervisor", "GatewayClient", "Replica", "ReplicaRouter",
+           "ServiceFleet", "ServiceGateway", "ServiceHealth",
+           "simulate_assignments", "FaultFabric", "FaultPlan", "FaultyClient",
+           "ResponseTimeout", "ServiceCrashed", "ServiceUnavailable"]

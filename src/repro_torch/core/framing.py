@@ -593,11 +593,20 @@ class FrameArena:
     slot: ``verify_view`` returns a view of ``guard_copy``'s protected copy,
     and the transports copy the payloads that ``verify_batch`` verified
     before they release the slots. Releasing a slot that is not out (twice,
-    or a tensor the arena did not carve) raises. Thread-safe."""
+    or a tensor the arena did not carve) raises. Thread-safe.
 
-    def __init__(self, rows: int = DEFAULT_ARENA_ROWS, device="cuda"):
+    ``backing`` carves the slots out of a caller's contiguous ``(rows,
+    128)`` uint32 tensor instead (``rows`` and ``device`` are then its
+    own): a process transport's slab, which a peer process maps too and
+    reads through the slots' row offsets (:meth:`offset_rows`)."""
+
+    def __init__(self, rows: int = DEFAULT_ARENA_ROWS, device="cuda", *,
+                 backing: Optional[torch.Tensor] = None):
+        if backing is not None:
+            _check_buf(backing, 1)
+            rows, device = backing.shape[0], backing.device
         self.rows, self.device = int(rows), resolve(device)
-        self._backing: Optional[torch.Tensor] = None
+        self._backing: Optional[torch.Tensor] = backing
         self._free: Dict[int, List[torch.Tensor]] = {}
         self._out: set = set()          # row offsets of the slots handed out
         self._brk = 0                   # rows carved so far

@@ -51,9 +51,15 @@ so it is ordered with the transport's own data plane (``transports``,
 "Streams"). Results handed to clients, and responses kept in the dedup
 window, are tensors that own their memory.
 
-Not ported here (see ROADMAP.md, queue 1, item 3): the process transports
-(``*_proc``, which fork) and so ``FleetSupervisor``; a ``*_proc``
-transport name raises :class:`ProcTransportNotPorted`.
+Process transports. A ``*_proc`` name resolves to ``procwire``'s process
+transports (the default of :meth:`ServiceGateway.register_replica` and
+:meth:`ServiceFleet.add`): each replica's handler runs in a child process
+started by a forkserver. A gateway whose own transport is a process
+transport is itself sent to its service process: it pickles without its
+transport, threads, shards and coalescer (``__getstate__``), and the child
+rebuilds its shards on its own stream and serves ``_dispatch``.
+:class:`FleetSupervisor` probes a fleet's replicas and actuates
+``runtime.elastic``'s planners.
 """
 from __future__ import annotations
 
@@ -225,20 +231,9 @@ from repro_torch.core.transports import (DeadlineExpired, HandlerCrash,  # noqa:
                                          _raise_remote, _stream_method)
 
 
-class ProcTransportNotPorted(TransportError, NotImplementedError):
-    """A ``*_proc`` transport was asked for: those run each service in a
-    forked process (``repro.core.procwire``), which the port does not have
-    yet (ROADMAP.md, queue 1, item 3). Nothing is substituted for it."""
-
-
 def _transport_class(transport: Union[str, type]) -> type:
     if not isinstance(transport, str):
         return transport
-    if transport.endswith("_proc"):
-        raise ProcTransportNotPorted(
-            f"transport {transport!r} forks a service process; the port has "
-            f"no process transports yet (ROADMAP.md, queue 1, item 3) — use "
-            f"{transport[:-len('_proc')]!r} for an in-process one")
     from repro_torch.core import ALL_TRANSPORTS
     return ALL_TRANSPORTS[transport]
 
@@ -1081,6 +1076,35 @@ class ServiceGateway:
             _Shard(i, weight_of=self._tenant_weight,
                    context=self.transport.on_stream) for i in range(workers)]
 
+    # -- the snapshot a process transport sends to its service process ------
+    def __getstate__(self):
+        """The gateway as its service process receives it when its own
+        transport is a process transport: everything the dispatch path
+        reads, without the transport, the shards' threads and the coalescer
+        (all of the parent's side). Locks arrive as fresh locks. A replica
+        fleet drives transports of its own and does not cross."""
+        if self._fleets:
+            raise TypeError("a gateway with replica fleets cannot be sent to "
+                            "a service process: its fleets drive transports "
+                            "of the parent")
+        state = self.__dict__.copy()
+        state["transport"] = None
+        state["_shards"] = len(self._shards)
+        state["_mux"] = None
+        return state
+
+    def __setstate__(self, state):
+        """Rebuild the shards in the service process, on the stream current
+        while it unpickles (the child's own)."""
+        n = state.pop("_shards")
+        self.__dict__.update(state)
+        context = None
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            context = lambda: torch.cuda.stream(stream)  # noqa: E731
+        self._shards = [_Shard(i, weight_of=self._tenant_weight,
+                               context=context) for i in range(n)]
+
     # -- service lifecycle --------------------------------------------------
     def register_service(self, name: str, handler: Handler,
                          allow: Optional[Set[str]] = None, *,
@@ -1155,7 +1179,7 @@ class ServiceGateway:
 
         One service name maps to N replicas; each replica runs ``handler``
         behind its OWN transport instance (proc-backed by default: the
-        handler executes in a forked child over a per-session POSIX shm
+        handler executes in a child process over a per-session POSIX shm
         segment) with its own key registry, protection domain and epoch —
         a frame sealed for one replica's link fails every other replica's
         guard. The gateway-side fleet routes each request to one replica
@@ -3112,7 +3136,7 @@ def simulate_assignments(seed: int, arrivals_ms, n_replicas: int,
 class Replica:
     """One fleet member: its own transport instance (its own key registry,
     protection domain and epoch — proc-backed by default, so the handler
-    runs in a forked child over a private POSIX shm segment) plus the one
+    runs in a child process over a private POSIX shm segment) plus the one
     session the fleet drives it through. The session is serial per the
     session model; ``rlock`` is the fleet-side serializer. ``inflight``
     counts admission→completion (queued + on the wire), which is what the
@@ -3183,7 +3207,15 @@ class ServiceFleet:
             transport: Union[str, type] = "mpklink_opt_proc",
             transport_kwargs: Optional[dict] = None) -> int:
         """Start one replica of ``handler`` behind its own transport
-        instance and place it in the routing set. → replica id."""
+        instance and place it in the routing set. → replica id.
+
+        A join resets every member's service-time EWMA to unobserved, so
+        the router samples each member of the new set before it compares
+        latencies. Without it the router compares the newcomer's fresh
+        samples with EWMAs that stopped moving when their replicas stopped
+        being picked: one slow sample of an old replica kept it out of the
+        routing set for good (the reference shares the rule; its faster,
+        steadier exchanges rarely show it)."""
         transport = _transport_class(transport)
         kwargs = dict(transport_kwargs or {})
         kwargs.setdefault("device", self.gw.device)
@@ -3193,6 +3225,8 @@ class ServiceFleet:
             with self._lock:
                 rid = next(self._rid_counter)
                 session = tr.connect(f"replica:{self.name}#{rid}")
+                for rep in self._replicas.values():
+                    rep.ewma_ms = None
                 self._replicas[rid] = Replica(rid, self.name, tr, session)
                 self.stats["joins"] += 1
         except BaseException:
@@ -3608,3 +3642,184 @@ class ServiceFleet:
                      "served": r.served,
                      "crashes": r.crashes}
                     for r in self._replicas.values()]
+
+
+# ---------------------------------------------------------------------------
+# the fleet supervisor (self-healing control plane)
+# ---------------------------------------------------------------------------
+
+class FleetSupervisor:
+    """Health-probing supervision loop over one service's
+    :class:`ServiceFleet`: detects DEAD and wedged replicas, ejects
+    EWMA-latency outliers, and actuates the pure planners'
+    (:func:`repro_torch.runtime.elastic.plan_outlier_ejection`,
+    :func:`repro_torch.runtime.elastic.plan_fleet_scaling`) step lists so
+    steady-state capacity converges back to ``target`` ACTIVE replicas
+    under continuous kill -9 (docs/protocol.md §9).
+
+    One sweep =
+
+    1. **probe** every ACTIVE replica, in seeded-shuffled order: grab its
+       wire lock (bounded — a busy wire is NOT a failure) and exchange one
+       tiny request. Any response, including a remote typed error, proves
+       the link alive; a dead link or a probe timeout retires the replica;
+    2. **eject** latency outliers per ``plan_outlier_ejection`` by draining
+       them under live traffic;
+    3. **converge** per ``plan_fleet_scaling``: release dead replicas,
+       respawn the deficit from the fleet's stored spawn spec (each
+       membership change exactly one re-key), and drain any surplus.
+
+    Decisions come from pure planners over an immutable snapshot, so a
+    recorded trace (``record=True``) replays exactly: :meth:`replay`
+    re-derives every sweep's plan from its recorded snapshot and fails
+    loudly on the first divergence."""
+
+    def __init__(self, gw: ServiceGateway, name: str, target: int, *,
+                 interval: float = 0.25, probe_timeout: float = 1.0,
+                 seed: int = 0x53555056, eject_factor: float = 4.0,
+                 record: bool = False):
+        if target < 1:
+            raise ValueError("target must be >= 1")
+        self.gw = gw
+        self.name = name
+        self.target = int(target)
+        self.interval = float(interval)
+        self.probe_timeout = float(probe_timeout)
+        self.seed = seed
+        self.eject_factor = float(eject_factor)
+        self.record = record
+        self._rng = random.Random(seed)
+        self._probe_payload = np.zeros(1, np.int32)
+        self._draining: set = set()     # ejected/surplus rids to re-drain
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.trace: List[Tuple] = []    # (sweep#, probes, snapshot, plan)
+        self.stats = {"sweeps": 0, "probes": 0, "deaths_detected": 0,
+                      "ejections": 0, "respawns": 0, "releases": 0,
+                      "drains": 0}
+
+    # -- probing ------------------------------------------------------------
+    def _probe(self, rep: Replica) -> str:
+        """One liveness probe. → ``"alive"`` | ``"dead"`` | ``"busy"``
+        (wire lock held past the bound — not probed, not failed)."""
+        if not rep.rlock.acquire(timeout=self.probe_timeout):
+            return "busy"
+        try:
+            if rep.state != REPLICA_ACTIVE:
+                return "busy"           # decided by another path meanwhile
+            try:
+                rep.session.request(self._probe_payload,
+                                    timeout=self.probe_timeout)
+            except (ServiceCrashed, ResponseTimeout):
+                # link death, or a probe not answered within the bound (the
+                # timeout has poisoned the session: it cannot be driven)
+                return "dead"
+            except Exception:
+                # a remote typed error (the probe payload is not a valid
+                # request for every handler): the link answered
+                return "alive"
+            return "alive"
+        finally:
+            rep.rlock.release()
+
+    # -- one sweep ----------------------------------------------------------
+    def sweep(self) -> list:
+        """Run one supervision sweep; → the actuated plan_fleet_scaling
+        step list (after probing and outlier ejection)."""
+        from repro_torch.runtime.elastic import (plan_fleet_scaling,
+                                                 plan_outlier_ejection)
+        fleet = self.gw.fleet(self.name)
+        sweep_no = self.stats["sweeps"]
+        self.stats["sweeps"] += 1
+
+        with fleet._lock:
+            actives = [r for r in fleet._replicas.values()
+                       if r.state == REPLICA_ACTIVE]
+        self._rng.shuffle(actives)
+        probes = []
+        for rep in actives:
+            verdict = self._probe(rep)
+            self.stats["probes"] += 1
+            probes.append((rep.rid, verdict))
+            if verdict == "dead":
+                self.stats["deaths_detected"] += 1
+                fleet._mark_dead(rep)
+
+        snap = fleet.snapshot()
+        for op, rid in plan_outlier_ejection(snap,
+                                             factor=self.eject_factor):
+            assert op == "eject"
+            self.stats["ejections"] += 1
+            self._draining.add(rid)
+
+        # re-drain anything decided earlier that has not quiesced yet
+        for rid in sorted(self._draining):
+            if self.gw.drain_replica(self.name, rid,
+                                     timeout=self.probe_timeout):
+                self._draining.discard(rid)
+                self.stats["drains"] += 1
+
+        snap = fleet.snapshot()
+        plan = plan_fleet_scaling(snap, self.target)
+        for op, arg in plan:
+            if op == "release":
+                # a DEAD replica drains trivially; one re-key on release
+                if self.gw.drain_replica(self.name, arg,
+                                         timeout=self.probe_timeout):
+                    self.stats["releases"] += 1
+            elif op == "join":
+                handler, transport, kwargs = fleet._spawn
+                for _ in range(arg):
+                    # a fresh replica with its own segment, domain and
+                    # epoch; the join epoch-bumps the service exactly once
+                    self.gw.register_replica(self.name, handler,
+                                             transport=transport,
+                                             transport_kwargs=kwargs)
+                    self.stats["respawns"] += 1
+            elif op == "drain":
+                self._draining.add(arg)
+        if self.record:
+            self.trace.append((sweep_no, tuple(probes), tuple(
+                tuple(sorted(r.items())) for r in snap), tuple(plan)))
+        return plan
+
+    def replay(self) -> None:
+        """Re-derive every recorded sweep's plan from its recorded snapshot
+        with the pure planner; raise AssertionError on the first
+        divergence."""
+        from repro_torch.runtime.elastic import plan_fleet_scaling
+        for sweep_no, _probes, snap_t, plan in self.trace:
+            snap = [dict(items) for items in snap_t]
+            fresh = tuple(plan_fleet_scaling(snap, self.target))
+            if fresh != plan:
+                raise AssertionError(
+                    f"supervisor replay diverged at sweep {sweep_no}: "
+                    f"recorded {plan}, replayed {fresh} "
+                    f"(seed {self.seed:#x})")
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> "FleetSupervisor":
+        if self._thread is not None:
+            raise RuntimeError("supervisor already started")
+        # import the planners here: a cold import inside the first sweep
+        # would stall the probe loop for its duration
+        from repro_torch.runtime import elastic as _elastic  # noqa: F401
+        self._thread = threading.Thread(
+            target=self._run, daemon=True,
+            name=f"fleet-supervisor-{self.name}")
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.sweep()
+            except Exception:           # a sweep failure shows in stats
+                pass
+
+    def stop(self) -> None:
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=30)
+            self._thread = None

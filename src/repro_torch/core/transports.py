@@ -72,8 +72,8 @@ with the frame's lane-10 deadline and lane-12 priority published through
 ``core.gateway``).
 
 Not ported (see ROADMAP.md): the reference's ``legacy_fast_mac`` and the
-``framing.ZERO_COPY = False`` copy path, and the process transports of
-``procwire``.
+``framing.ZERO_COPY = False`` copy path. The process transports are in
+:mod:`repro_torch.core.procwire`.
 """
 from __future__ import annotations
 

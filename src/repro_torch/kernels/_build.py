@@ -32,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# a service process (core.procwire) loads the libraries its parent built
+# and never builds one
+ALLOW_BUILD = True
 
 
 def _nvcc() -> str:
@@ -95,6 +98,11 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         if lib is None:
             path = library_path(name)
             if not path.exists():
+                if not ALLOW_BUILD:
+                    raise RuntimeError(
+                        f"kernel library {path.name} is not built; a service "
+                        f"process loads the libraries its parent built "
+                        f"(kernels._build.build()) and builds none")
                 build([name])
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in signatures.items():

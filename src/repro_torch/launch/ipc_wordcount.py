@@ -42,6 +42,7 @@ ENDPOINT = 100_000_000                       # the paper's largest request
 ENDPOINT_TRANSPORTS = ("uds", "mpklink", "mpklink_opt")
 ORDER = ["pipe", "uds", "shm", "grpc_sim", "mpklink", "mpklink_opt"]
 MPK = ("mpklink", "mpklink_opt")
+MPK_PROC = ("mpklink_proc", "mpklink_opt_proc")     # core.procwire's pair
 COUNT_BYTES = 8                              # a response: the count as uint64
 
 
@@ -72,6 +73,18 @@ def lockstep_launches(name: str, nbytes: int, device) -> Dict[str, int]:
                 {"guard_copy": 2})
 
 
+def proc_launches(name: str, nbytes: int, device) -> tuple:
+    """Guard-kernel launches of one lockstep request over a process
+    transport, as ``(parent, child)``: the parent seals the request and
+    verifies the response with one ``guard_copy``, the service child
+    verifies the request and seals the response. Empty on the CPU and for
+    the transports without MPK."""
+    if torch.device(device).type != "cuda" or name not in MPK_PROC:
+        return {}, {}
+    return (_add(_seal_launches(nbytes), {"guard_copy": 1}),
+            _add(_seal_launches(COUNT_BYTES), {"guard_copy": 1}))
+
+
 def _mac_batch_launches(nbytes: Sequence[int]) -> int:
     """``framing.mac_batch`` launches for frames of these payload sizes: one
     per row count, per ``MAX_BATCH_FRAMES`` frames."""
@@ -95,8 +108,9 @@ def ring_launches(req_nbytes: Sequence[int], device) -> Dict[str, int]:
 
 def lockstep_syncs(tr, nbytes: int) -> int:
     """PKRU key syncs of one lockstep request: one a ``chunk`` of the
-    request frame, one on the response side (0 without MPK)."""
-    if tr.name not in MPK:
+    request frame, one on the response side (0 without MPK; the process
+    transports keep the schedule)."""
+    if tr.name not in MPK + MPK_PROC:
         return 0
     chunk_rows = max(1, tr.chunk // (framing.LANES * 4))
     return math.ceil(framing.frame_rows(nbytes) / chunk_rows) + 1

@@ -1,6 +1,5 @@
 """Fault tolerance primitives: heartbeats, failure injection, straggler
-detection (a copy of ``repro.runtime.fault``; its ``GatewaySupervisor``
-waits for the port of the gateway's health and recovery planning).
+detection, and the gateway supervisor (a copy of ``repro.runtime.fault``).
 
 On one device the *detection/decision logic* is what runs and is
 unit-tested; the actuation path (restore checkpoint, resume) is exercised
@@ -123,3 +122,47 @@ class GuardTripError(RuntimeError):
     known-good state (the paper's tamper-detection, actioned)."""
     step: int
     detail: str = ""
+
+
+class GatewaySupervisor:
+    """Service-level incarnation of the worker heartbeat loop: feeds a
+    :class:`HeartbeatMonitor` from a gateway's per-service health and
+    actuates the recovery plan (restart / shed / leave-open) that
+    :func:`repro_torch.runtime.elastic.plan_gateway_recovery` decides.
+
+    The gateway already self-heals inline for services registered with a
+    ``factory``; the supervisor is the out-of-band sweep that (a) restarts
+    factory-less services an operator has since given a factory, (b) keeps
+    the monitor's alive/failed view consistent for dashboards, and (c) is
+    the single place a control loop calls on its cadence."""
+
+    def __init__(self, gateway, timeout: float = 5.0):
+        self.gateway = gateway
+        self.monitor = HeartbeatMonitor(list(gateway._services), timeout)
+        self.log: list = []            # (tick, action, service) audit trail
+        self._tick = 0
+
+    def observe(self) -> Dict[str, Dict[str, object]]:
+        """Pull the gateway health snapshot into the heartbeat view."""
+        snap = self.gateway.health()
+        for name, h in snap.items():
+            self.monitor.ensure(name)               # late-registered service
+            if h["state"] == "closed":
+                self.monitor.revive(name)
+            else:
+                self.monitor.mark_failed(name)
+        return snap
+
+    def heal(self) -> list:
+        """One supervision sweep: observe, plan, actuate. → actions taken."""
+        from repro_torch.runtime.elastic import plan_gateway_recovery
+        snap = self.observe()
+        restartable = {n for n, s in self.gateway._services.items()
+                       if s.factory is not None}
+        actions = plan_gateway_recovery(snap, restartable)
+        self._tick += 1
+        for action, name in actions:
+            if action == "restart":
+                self.gateway.restart_service(name)
+            self.log.append((self._tick, action, name))
+        return actions

@@ -22,18 +22,24 @@ encoder-decoder model (whose state needs an encoder output per request).
 Sampling is greedy by default; with ``greedy=False`` each tick samples the
 last logits' categorical through a ``torch.Generator`` on the logits'
 device, seeded from ``seed`` (JAX's PRNG stream is not reproduced, so the
-two packages agree in distribution, not token for token). The
-replica-fleet helpers (``fleet_handler``, ``register_engine_fleet``) are
-not ported: they fork service processes, and CUDA must not be initialised
-in a process before it forks (see ROADMAP.md).
+two packages agree in distribution, not token for token).
+
+Replica fleets (:func:`register_engine_fleet`) serve one engine a replica,
+each behind its own transport, by default in a process of its own
+(``mpklink_opt_proc``). The replica's handler (:class:`FleetHandler`)
+pickles: it carries an engine factory (a ``functools.partial`` of a
+module-level builder such as :func:`seeded_engine`) and builds its
+:class:`EngineService` lazily in the child, because threads do not cross a
+process boundary.
 """
 from __future__ import annotations
 
 import itertools
+import json
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -425,3 +431,125 @@ class EngineService:
                         self._cancel(later_rid)
                 raise
         return outs
+
+
+# ---------------------------------------------------------------------------
+# replica fleets (N engines behind one service name)
+# ---------------------------------------------------------------------------
+
+def seeded_engine(arch: str, seed: int, *, max_batch: int = 8,
+                  max_seq: int = 256, dtype: str = "bfloat16",
+                  device="cuda", reduced: bool = False) -> ServingEngine:
+    """A :class:`ServingEngine` over random weights of ``arch`` (its full
+    configuration, or the reduced one) drawn from ``seed`` on ``device``.
+    Module-level, so ``functools.partial`` of it is an engine factory that
+    pickles: every replica process builds the same weights from the
+    seed."""
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models import init_params
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    dev = resolve(device)
+    dt = getattr(torch, dtype)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dtype=dt)
+    return ServingEngine(cfg, params, max_batch=max_batch, max_seq=max_seq,
+                         dtype=dt, device=dev)
+
+
+# a request no prompt can equal (max_new < 0): a replica answers it with
+# its engine's counters instead of serving it
+FLEET_STATS = np.array([-1, 0x53544154], np.int32)
+
+
+class FleetHandler:
+    """Service handler for one engine replica (what :func:`fleet_handler`
+    returns).
+
+    The :class:`EngineService` — engine, slot grid and its tick thread — is
+    built lazily on the first request, in the process that serves it: a
+    process replica pickles this handler without a service and builds its
+    own engine in the child. The :data:`FLEET_STATS` request returns the
+    replica's counters as JSON bytes: ``ticks`` (engine ticks),
+    ``launches`` (its process's ``ops.LAUNCHES``) and ``card_bytes`` (what
+    its process holds allocated on the card; 0 on the CPU)."""
+
+    def __init__(self, engine_factory: Callable[[], ServingEngine], *,
+                 timeout: float = 300.0):
+        self.engine_factory = engine_factory
+        self.timeout = timeout
+        self._svc: Optional[EngineService] = None
+        self._lock = threading.Lock()
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        del state["_svc"], state["_lock"]   # each process builds its own
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._svc = None
+        self._lock = threading.Lock()
+
+    def service(self) -> EngineService:
+        with self._lock:
+            if self._svc is None:
+                self._svc = EngineService(self.engine_factory(),
+                                          timeout=self.timeout).start()
+            return self._svc
+
+    def __call__(self, req) -> np.ndarray:
+        svc = self.service()
+        if _is_stats(req):
+            from repro_torch.kernels import ops
+            dev = svc.engine.device
+            doc = {"ticks": svc.engine.ticks,
+                   "launches": ops.LAUNCHES.snapshot(),
+                   "card_bytes": torch.cuda.memory_allocated(dev)
+                   if dev.type == "cuda" else 0}
+            return np.frombuffer(json.dumps(doc).encode(), np.uint8).copy()
+        return svc.handler(req)
+
+    def close(self):
+        with self._lock:
+            if self._svc is not None:
+                self._svc.close()
+                self._svc = None
+
+
+def _is_stats(req) -> bool:
+    if isinstance(req, torch.Tensor):
+        if req.numel() * req.element_size() != FLEET_STATS.nbytes:
+            return False
+        words = req.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+    else:
+        words = np.ascontiguousarray(req).reshape(-1).view(np.uint8)
+        if words.nbytes != FLEET_STATS.nbytes:
+            return False
+    return bool((words.view(np.int32) == FLEET_STATS).all())
+
+
+def fleet_handler(engine_factory: Callable[[], ServingEngine], *,
+                  timeout: float = 300.0) -> FleetHandler:
+    """Service handler for one engine replica: a :class:`FleetHandler`
+    that builds its engine lazily where it serves (in the replica's
+    process, for a process transport)."""
+    return FleetHandler(engine_factory, timeout=timeout)
+
+
+def register_engine_fleet(gw, name: str,
+                          engine_factory: Callable[[], ServingEngine],
+                          replicas: int, *,
+                          transport: str = "mpklink_opt_proc",
+                          transport_kwargs: Optional[dict] = None,
+                          timeout: float = 300.0) -> List[int]:
+    """Register ``replicas`` independent engine replicas behind one service
+    name on ``gw`` (a :class:`repro_torch.core.gateway.ServiceGateway`).
+    Each replica is its own transport instance — own protection domain,
+    epoch and segment, and for process transports its own child process
+    running a private engine through :func:`fleet_handler`. → the replica
+    ids, in join order."""
+    return [gw.register_replica(name, fleet_handler(engine_factory,
+                                                    timeout=timeout),
+                                transport=transport,
+                                transport_kwargs=transport_kwargs)
+            for _ in range(replicas)]

@@ -33,8 +33,12 @@ def test_core_exports():
                  "ServiceHealth", "ReplicaRouter", "Replica", "ServiceFleet",
                  "simulate_assignments", "ALL_TRANSPORTS"):
         assert name in core.__all__ and hasattr(core, name)
-    assert core.ALL_TRANSPORTS == core.TRANSPORTS
-    assert not any(n.endswith("_proc") for n in core.ALL_TRANSPORTS)
+    # the reference's composition: the in-process transports plus the
+    # process transports and the REST / socket-RPC baselines
+    assert core.ALL_TRANSPORTS == {**core.TRANSPORTS, **core.PROC_TRANSPORTS,
+                                   **core.BASELINE_TRANSPORTS}
+    from repro.core import ALL_TRANSPORTS as REF
+    assert sorted(core.ALL_TRANSPORTS) == sorted(REF)
 
 
 @pytest.fixture

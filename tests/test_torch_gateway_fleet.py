@@ -3,11 +3,12 @@ against the port's ``ReplicaRouter`` / ``ServiceFleet`` on the CPU, under
 their own names: seeded power-of-two routing, determinism and replay,
 cohorts that never split, drain and join with one re-key each, and typed
 unavailability; and the hedging cases of ``tests/test_retry_properties.py``
-(late binding: one wire send, budget-capped). The cases over forked
-replicas (``test_fleet_proc_*``), the scaling planner's
-(``repro.runtime.elastic``) and the fault-matrix properties wait for the
-process transports and ``faultwire`` (ROADMAP.md, queue 1, item 3); a
-``*_proc`` transport name raises ``ProcTransportNotPorted``."""
+(late binding: one wire send, budget-capped). The cases over process
+replicas (``test_fleet_proc_*``) and the scaling planner's are in
+``tests/test_torch_fleet_proc.py``; here a ``*_proc`` name resolves to a
+process replica and an unknown one is refused as in the reference."""
+import functools
+import os
 import threading
 import time
 
@@ -15,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.gateway import (FLEET_CHOICES, ProcTransportNotPorted,
-                                      ReplicaRouter, RetryBudget,
+import torch_proc_handlers as H
+from repro_torch.core import ALL_TRANSPORTS, procwire
+from repro_torch.core.gateway import (FLEET_CHOICES, ReplicaRouter, RetryBudget,
                                       ServiceGateway as _ServiceGateway,
                                       simulate_assignments)
 from repro_torch.core.transports import ServiceUnavailable
@@ -294,21 +296,33 @@ def test_fleet_all_replicas_gone_is_typed_unavailable():
         gw.close()
 
 
+@pytest.mark.proc
 def test_proc_transport_names_refused_typed():
-    """The reference's default replica transport forks a child process; the
-    port has no process transports yet, so asking for one raises its typed
-    error (nothing in-process is put in its place), and so does a gateway
-    built on one."""
+    """Every name of the reference's ``PROC_TRANSPORTS`` and
+    ``BASELINE_TRANSPORTS`` resolves; the default transport of
+    ``register_replica`` is a process replica (its handler answers from a
+    child process); and an unknown name is refused with the reference's
+    ``KeyError``, by a fleet and by a gateway alike."""
+    from repro.core import BASELINE_TRANSPORTS, PROC_TRANSPORTS
+    assert set(PROC_TRANSPORTS) | set(BASELINE_TRANSPORTS) \
+        <= set(ALL_TRANSPORTS)
     gw = ServiceGateway("mpklink_opt")
     try:
-        with pytest.raises(ProcTransportNotPorted, match="queue 1, item 3"):
-            gw.register_replica("echo", _tagged(0))
-        with pytest.raises(ProcTransportNotPorted):
+        rid = gw.register_replica("echo", functools.partial(H.tagged, 0),
+                                  transport_kwargs={"timeout": 30.0})
+        rep = gw.fleet("echo")._replicas[rid]
+        assert isinstance(rep.transport, procwire.ProcMPKLinkOptTransport)
+        cli = gw.connect("c0")
+        assert _tag(cli.call("echo", np.arange(2, dtype=np.uint8))) == 0
+        assert rep.session._proc.pid != os.getpid()
+        assert rep.session._proc.is_alive()
+        cli.close()
+        with pytest.raises(KeyError):
             gw.register_replica("echo", _tagged(0), transport="uds_proc")
     finally:
         gw.close()
-    with pytest.raises(ProcTransportNotPorted):
-        ServiceGateway("mpklink_opt_proc")
+    with pytest.raises(KeyError):
+        ServiceGateway("uds_proc")
 
 
 # the hedging cases of tests/test_retry_properties.py (no faultwire needed)

@@ -4,6 +4,7 @@ and without the ``repro`` package, and ``chip_smoke.py`` imports neither.
 The import check runs in a subprocess because this test process already
 imported JAX (``tests/conftest.py``)."""
 import ast
+import functools
 import os
 import subprocess
 import sys
@@ -30,16 +31,44 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+print(" ".join(names))
 print(len(names))
 """
 
 
-def test_every_module_imports_without_jax_or_repro():
+@functools.lru_cache(maxsize=None)
+def _probe():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    return out.stdout.strip().splitlines()
+
+
+def test_every_module_imports_without_jax_or_repro():
+    assert int(_probe()[-1]) >= 20
+
+
+def test_process_and_fault_modules_import_without_jax_or_repro():
+    """The process transports, the fault fabric and the planners are among
+    the modules the probe imports with JAX and ``repro`` refused."""
+    names = set(_probe()[-2].split())
+    assert {"repro_torch.core.procwire", "repro_torch.core.faultwire",
+            "repro_torch.runtime.elastic", "repro_torch.runtime.fault",
+            "repro_torch.runtime.serve"} <= names
+
+
+def test_port_children_start_from_the_forkserver_only():
+    """CUDA does not survive fork: every child of the port starts from the
+    forkserver, on the CPU and on the card alike, and no source asks for
+    the fork start method or forks by hand."""
+    from repro_torch.core import procwire
+    assert procwire._CTX.get_start_method() == "forkserver"
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        text = path.read_text()
+        assert 'get_context("fork")' not in text, path
+        assert "get_context('fork')" not in text, path
+        assert "os.fork(" not in text, path
 
 
 def _imported_roots(path: Path):
