@@ -31,6 +31,28 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              forward and backward kernels, a backward through the decode
              kernel raises, and 70,000 one-row frames go through
              ``framing.mac_batch`` bit for bit.
+   fabric  — the device fabric (``core.fabric``) as four ranks on the one
+             card (``launch.world``: processes from the forkserver, each on
+             ``cuda:0``, a gloo group; NCCL refuses two ranks on one GPU, so
+             every exchange is staged through pinned host buffers): the
+             guarded ``neighbor_exchange``, ``ring_all_gather``,
+             ``reduce_scatter_ring`` and ``all_to_all`` at 64 MiB a rank (ok
+             1 in every rank, results equal to the same computation in one
+             rank, a flipped bit refused); ring attention at llama3.2-1b's
+             attention shape, B 2, S 8192 (2048 a rank), bf16, causal,
+             window 4096 and non-causal, against one flash call over the
+             whole sequence (2e-2); mixtral-8x7b's MoE layer at full width
+             expert-parallel (2 experts and 2048 tokens a rank) against the
+             dense layer with routing groups of one rank's tokens (2e-2);
+             llama3.2-1b's 16 blocks as a 4-stage GPipe pipeline, 4
+             microbatches of 2 x 2048, forward and backward in bf16, against
+             the stack in one rank (outputs 2e-2, gradient cosine >= 0.99);
+             ``compressed_tree_reduce`` over one block's f32 gradient tree
+             (60.8 M values) against the exact mean (within half an int8
+             step, residual non-zero). Per case: wall ms, hops, staged bytes,
+             launches of ``mac_batch``, ``flash_attention`` and
+             ``flash_attention_bwd`` in the ranks (each exact); which gloo
+             collectives take CUDA tensors; the rank starts and the wall.
    ipc     — ``launch.ipc_wordcount`` on the card: the paper's word count
              through the port's six transports at 1e2 to 1e7 words (3
              reps, median) and uds, mpklink and mpklink_opt at 1e8 (1 rep):
@@ -162,8 +184,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              at a capacity factor of E / k, where neither path drops).
 
 Then a ``kernels`` JSON line (times from CUDA events, bounds from this
-run's inputs, launches summed over the ipc, prefill, serve, gateway,
-proc (the parent's and the children's), decode and train phases; the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
+run's inputs, launches summed over the fabric (its ranks'), ipc, prefill,
+serve, gateway, proc (the parent's and the children's), decode and train
+phases; the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
 replaced timed in this run, and the two backwards the design each replaced
 (flash: ``mma.sync``; SSD: the per-head chunk kernel, also
 ``earlier_pass_ms``); the four add ``kernels_per_call``, the kernel
@@ -2217,6 +2240,327 @@ def phase_proc(cfg, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# fabric: four ranks on the one card, over gloo, staged through the host
+# ---------------------------------------------------------------------------
+
+FABRIC_WORLD = 4
+FABRIC_MiB = 64                      # per rank, each guarded collective
+FABRIC_KERNELS = ("mac_batch", "flash_attention", "flash_attention_bwd")
+
+
+def _close(got, want, tol):
+    """Max abs error of ``got`` against ``want`` (f32), checked against
+    ``tol`` times max(1, max |want|) → the error."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    return err, err <= tol * scale
+
+
+def _gloo_takes_cuda(rank, world):
+    """Which gloo collectives accept CUDA tensors here: each is tried on a
+    small tensor in every rank (a refusal is raised in every rank alike),
+    then the ranks meet at a barrier. Point-to-point is not tried: gloo's
+    ``isend`` of a CUDA tensor writes the device pointer to its socket and
+    aborts the process (``writev ... Bad address``, torch 2.11)."""
+    import torch.distributed as dist
+    t = torch.ones(4, device="cuda")
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(world)], t),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0),
+    }
+    out = {}
+    for name, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = True
+        except RuntimeError:             # gloo refuses the device
+            out[name] = False
+        dist.barrier()
+    return out
+
+
+class _Case:
+    """Wall ms (the ranks meet first, the card is synchronised after),
+    staged bytes and kernel launches of one case in this rank."""
+
+    def __init__(self, rec):
+        self.rec = rec
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from repro_torch.core.fabric import FABRIC_STATS
+        from repro_torch.kernels.ops import LAUNCHES
+        torch.cuda.synchronize()
+        dist.barrier()
+        FABRIC_STATS.reset()
+        LAUNCHES.reset()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.fabric import FABRIC_STATS
+        from repro_torch.kernels.ops import LAUNCHES
+        torch.cuda.synchronize()
+        self.rec["wall_ms"] = (time.perf_counter() - self.t0) * 1e3
+        self.rec.update(FABRIC_STATS.snapshot())
+        n = LAUNCHES.snapshot()
+        self.rec["launches"] = {k: n[k] for k in FABRIC_KERNELS}
+        return False
+
+
+def _fabric_collectives(rank, world, fab, chan, key, raw, raw_key):
+    from repro_torch.core.fabric import (all_to_all, attach_mac, neighbor_exchange,
+                                         reduce_scatter_ring, ring_all_gather,
+                                         verify_mac)
+    n = FABRIC_MiB * 2 ** 20 // 4
+
+    def data(r):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 100 + r)
+        return torch.randn(n, generator=g, device="cuda")
+
+    x = data(rank)
+    everyone = torch.stack([data(r) for r in range(world)])
+    rec = {"mib_a_rank": FABRIC_MiB}
+    with _Case(rec):
+        y, ok_ne = neighbor_exchange(fab, chan, key, x)
+        gathered, ok_ag = ring_all_gather(fab, chan, key, x)
+        shard, ok_rs = reduce_scatter_ring(fab, chan, key, x)
+        a2a = all_to_all(fab, chan, key, x.view(world, -1), split_axis=0,
+                         concat_axis=0)
+    oks = [int(o.item()) for o in (ok_ne, ok_ag, ok_rs)]
+    check(oks == [1, 1, 1], f"fabric: ok flags {oks} in rank {rank}")
+    check(torch.equal(y, everyone[(rank - 1) % world]), "fabric: neighbor_exchange")
+    check(torch.equal(gathered, everyone.reshape(-1)), "fabric: ring_all_gather")
+    rows = n // world
+    want = everyone[:, rank * rows:(rank + 1) * rows].sum(0)
+    rec["reduce_scatter_err"], good = _close(shard, want, 1e-5)
+    check(good, f"fabric: reduce_scatter_ring off by {rec['reduce_scatter_err']}")
+    check(torch.equal(a2a, everyone.view(world, world, -1)[:, rank]),
+          "fabric: all_to_all")
+    # a flipped bit in a received 64 MiB buffer fails its MAC
+    got, _ = neighbor_exchange(fab, raw, raw_key, x)
+    mac, _ = neighbor_exchange(fab, raw, raw_key,
+                               attach_mac(x, chan.seed).view(torch.int32).reshape(1))
+    bad = got.clone()
+    bad.view(torch.int32)[n // 2 + rank] ^= 1 << (rank + 7)
+    flags = [int(verify_mac(t, mac, chan.seed).item()) for t in (got, bad)]
+    check(flags == [1, 0], f"fabric: MAC of a clean / flipped hop gave {flags}")
+    want_macs = 2 * (1 + 2 * (world - 1))
+    check(rec["launches"]["mac_batch"] == want_macs,
+          f"fabric: {rec['launches']['mac_batch']} mac_batch launches, "
+          f"want {want_macs}")
+    return rec
+
+
+def _fabric_ring(rank, world, fab, chan, key):
+    from repro_torch.core.ring_attention import ring_attention
+    from repro_torch.kernels import ops
+    B, S, H, Hkv, Dh = 2, 8192, 32, 8, 64         # llama3.2-1b's attention
+    g = torch.Generator(device="cuda").manual_seed(SEED + 200)
+    q = torch.randn(B, S, H, Dh, generator=g, device="cuda").bfloat16()
+    k = torch.randn(B, S, Hkv, Dh, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, S, Hkv, Dh, generator=g, device="cuda").bfloat16()
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(B, S)
+    blk = slice(rank * S // world, (rank + 1) * S // world)
+    local = [t[:, blk].contiguous() for t in (q, k, v, pos)]
+    recs = {}
+    for name, causal, window in (("causal", True, None), ("window_4096", True, 4096),
+                                 ("non_causal", False, None)):
+        rec = {"B": B, "S": S, "S_a_rank": S // world, "H": H, "Hkv": Hkv, "Dh": Dh}
+        with _Case(rec):
+            out, ok = ring_attention(fab, chan, key, *local[:3], local[3], local[3],
+                                     causal=causal, window=window)
+        want = ops.attention(q, k, v, pos, pos, causal=causal, window=window)[:, blk]
+        rec["max_abs_err"], good = _close(out, want, 2e-2)
+        check(good and int(ok.item()) == 1,
+              f"fabric: ring attention {name} off by {rec['max_abs_err']}")
+        n = rec["launches"]
+        check(n["flash_attention"] == world and n["mac_batch"] == 2 * 3 * (world - 1),
+              f"fabric: ring attention {name} launches {n}")
+        recs[name] = rec
+    return recs
+
+
+def _fabric_moe(rank, world, mesh):
+    from repro_torch.configs import get_config, replace
+    from repro_torch.core.fabric import MPKLinkFabric
+    from repro_torch.models.moe import apply_moe, init_moe_stack
+    from repro_torch.models.moe_ep import apply_moe_ep, split_expert_weights
+    from repro_torch.tree import map_tree
+    cfg = get_config("mixtral-8x7b")
+    S = 2048
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 300)
+    w = map_tree(lambda a: a[0], init_moe_stack(cfg, gen, 1, torch.bfloat16))
+    x = torch.randn(world, S, cfg.d_model, generator=gen, device="cuda").bfloat16()
+    fab = MPKLinkFabric(mesh)
+    chan, key = fab.establish("moe-dispatch", "x")
+    local = split_expert_weights(w, world, rank)
+    rec = {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "experts": cfg.moe.num_experts,
+           "experts_a_rank": cfg.moe.num_experts // world, "tokens_a_rank": S,
+           "expert_bytes_a_rank": sum(local[n].nbytes for n in ("gate", "up", "down"))}
+    with _Case(rec):
+        y, aux = apply_moe_ep(cfg, local, x[rank:rank + 1], fabric=fab, chan=chan,
+                              key=key)
+    dense = replace(cfg, moe=replace(cfg.moe, group_size=S))
+    want, aux_want = apply_moe(dense, w, x[rank:rank + 1])
+    rec["max_abs_err"], good = _close(y, want, 2e-2)
+    rec["drop_frac"] = aux["moe_drop_frac"].item()
+    check(good and rec["drop_frac"] == aux_want["moe_drop_frac"].item(),
+          f"fabric: apply_moe_ep off by {rec['max_abs_err']}")
+    return rec
+
+
+def _fabric_pipeline(rank, world, mesh):
+    from repro_torch.configs import get_config
+    from repro_torch.core.fabric import MPKLinkFabric
+    from repro_torch.models.transformer import Impl, apply_block, init_stack, layers
+    from repro_torch.runtime.pipeline import pipeline_apply, stage_split
+    from repro_torch.tree import leaves, map_tree
+    cfg = get_config("llama3.2-1b")
+    n_micro, mb, S = 4, 2, 2048
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 400)
+    stacked = init_stack(cfg, gen, cfg.num_layers, torch.bfloat16)
+    xm = torch.randn(n_micro, mb, S, cfg.d_model, generator=gen,
+                     device="cuda").bfloat16()
+    per = cfg.num_layers // world
+    local = map_tree(lambda a: a[rank].clone().requires_grad_(),
+                     stage_split(stacked, world))
+    fab = MPKLinkFabric(mesh, guard=True)
+    chan, key = fab.establish("stage-handoff", "x")
+    rec = {"layers": cfg.num_layers, "stages": world, "n_micro": n_micro,
+           "microbatch": [mb, S]}
+    with _Case(rec):
+        outs, ok = pipeline_apply(cfg, local, xm, fabric=fab, chan=chan, key=key,
+                                  impl=Impl())
+        (outs.float() ** 2).sum().backward()
+    check(int(ok.item()) == 1, "fabric: pipeline ok flag")
+    ticks = n_micro + world - 1
+    n = rec["launches"]
+    check(n["flash_attention"] == ticks * per and n["flash_attention_bwd"] == ticks * per
+          and n["mac_batch"] == 2 * ticks, f"fabric: pipeline launches {n}")
+    # the stack in one rank: this stage's blocks take gradients, the later
+    # ones carry them back, the earlier ones run without a graph
+    mine = map_tree(lambda a: a[rank].clone().requires_grad_(),
+                    stage_split(stacked, world))
+    blocks = layers(stacked)
+    own = layers(mine)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].expand(mb, S)
+    errs = []
+    for m in range(n_micro):
+        h = xm[m]
+        with torch.no_grad():
+            for p in blocks[:rank * per]:
+                h, _ = apply_block(cfg, p, h, positions=pos, impl=Impl())
+        for p in own + blocks[(rank + 1) * per:]:
+            h, _ = apply_block(cfg, p, h, positions=pos, impl=Impl())
+        errs.append(_close(outs[m].detach(), h.detach(), 2e-2))
+        (h.float() ** 2).sum().backward()
+    rec["max_abs_err"] = max(e for e, _ in errs)
+    cos = [torch.nn.functional.cosine_similarity(
+        a.grad.flatten().double(), b.grad.flatten().double(), dim=0).item()
+        for a, b in zip(leaves(local), leaves(mine))]
+    rec["min_grad_cosine"] = min(cos)
+    check(all(g for _, g in errs) and min(cos) >= 0.99,
+          f"fabric: pipeline off by {rec['max_abs_err']}, cosine {min(cos)}")
+    return rec
+
+
+def _fabric_compression(rank, world, mesh):
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_stack
+    from repro_torch.optim import compressed_tree_reduce, init_error_feedback
+    from repro_torch.tree import leaves, map_tree
+    cfg = get_config("llama3.2-1b")
+
+    def grads(r):
+        return map_tree(lambda a: a[0].float(), init_stack(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED + 500 + r), 1))
+
+    g = grads(rank)
+    ef = init_error_feedback(g, world)
+    rec = {"values": sum(t.numel() for t in leaves(g))}
+    with _Case(rec):
+        red, new_ef = compressed_tree_reduce(g, ef, mesh.get_group("x"))
+    exact = [torch.stack(ls).mean(0) for ls in
+             zip(*(leaves(grads(r)) for r in range(world)))]
+    worst = 0.0
+    for got, want in zip(leaves(red), exact):
+        rows = want.shape[0] // world
+        for j in range(world):
+            shard = want[j * rows:(j + 1) * rows]
+            step = shard.abs().max().item() / 127.0
+            err = (got[j * rows:(j + 1) * rows] - shard).abs().max().item()
+            worst = max(worst, err / step)
+    rec["err_over_int8_step"] = worst            # the bound: one half step
+    rec["residual_max"] = max(t.abs().max().item() for t in leaves(new_ef))
+    check(worst <= 0.5 + 1e-3 and rec["residual_max"] > 0,
+          f"fabric: compressed reduce {worst} int8 steps off, residual "
+          f"{rec['residual_max']}")
+    return rec
+
+
+def fabric_rank(rank, world, t_start):
+    """One rank of the fabric phase (a process of its own on the card)."""
+    from repro_torch.core.fabric import MPKLinkFabric
+    from repro_torch.launch.mesh import make_test_mesh
+    started = time.time() - t_start
+    gloo_cuda = _gloo_takes_cuda(rank, world)
+    mesh = make_test_mesh((world,), ("x",))
+    fab = MPKLinkFabric(mesh, guard=True)
+    chan, key = fab.establish("tp", "x")
+    raw, raw_key = fab.establish("raw", "x", guard=False)
+    ring, ring_key = fab.establish("ring-kv", "x")
+    cases = {"collectives": _fabric_collectives(rank, world, fab, chan, key, raw,
+                                                raw_key)}
+    cases.update({f"ring_attention_{k}": v
+                  for k, v in _fabric_ring(rank, world, fab, ring, ring_key).items()})
+    torch.cuda.empty_cache()
+    cases["moe_ep"] = _fabric_moe(rank, world, mesh)
+    torch.cuda.empty_cache()
+    cases["pipeline"] = _fabric_pipeline(rank, world, mesh)
+    torch.cuda.empty_cache()
+    cases["compressed_tree_reduce"] = _fabric_compression(rank, world, mesh)
+    return {"started_s": started, "gloo_cuda": gloo_cuda, "cases": cases,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_fabric(smi):
+    """The device fabric on the one card: four ranks (processes from the
+    forkserver, each on ``cuda:0``) over gloo, every exchange staged
+    through pinned host buffers; every case held against the same
+    computation in one rank. → the kernel launches of the cases."""
+    from repro_torch.launch.world import run_world
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_world(fabric_rank, FABRIC_WORLD, time.time(), device="cuda",
+                      timeout=600)
+    wall = time.perf_counter() - t0
+    cases = {}
+    for name in ranks[0]["cases"]:
+        per = [r["cases"][name] for r in ranks]
+        rec = dict(per[0])
+        rec["wall_ms"] = max(p["wall_ms"] for p in per)
+        for k in ("hops", "collectives", "sent_bytes", "staged_bytes"):
+            rec[k] = sum(p[k] for p in per)
+        rec["launches"] = {k: sum(p["launches"][k] for p in per) for k in FABRIC_KERNELS}
+        for k in ("max_abs_err", "reduce_scatter_err", "err_over_int8_step"):
+            if k in rec:
+                rec[k] = max(p[k] for p in per)
+        if "min_grad_cosine" in rec:
+            rec["min_grad_cosine"] = min(p["min_grad_cosine"] for p in per)
+        cases[name] = rec
+    launches = {k: sum(c["launches"][k] for c in cases.values()) for k in FABRIC_KERNELS}
+    emit(phase="fabric", card=smi, world=FABRIC_WORLD, backend="gloo",
+         gloo_takes_cuda=ranks[0]["gloo_cuda"],
+         rank_start_s=max(r["started_s"] for r in ranks),
+         peak_mem_gb_a_rank=max(r["peak_mem_gb"] for r in ranks),
+         cases=cases, launches=launches, wall_s=wall)
+    return launches
+
+
 def phase_ipc(smi):
     """``launch.ipc_wordcount`` on the card: the six transports at 1e2 to
     1e7 words (3 reps, median) and uds, mpklink and mpklink_opt at 1e8 (1
@@ -3159,17 +3503,18 @@ def main():
     t0 = time.perf_counter()
     smi = phase_card()
     err = phase_kernels()
-    llama, mamba, zamba, olmo, smollm, qwen3 = (get_config(a) for a in (
-        "llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b", "olmo-1b", "smollm-360m",
-        "qwen3-14b"))
-    mixtral = replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS)
-    whisper, llava = get_config("whisper-tiny"), get_config("llava-next-mistral-7b")
     launches = {}                            # summed over the main-path runs
 
     def add(counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
 
+    add(phase_fabric(smi))
+    llama, mamba, zamba, olmo, smollm, qwen3 = (get_config(a) for a in (
+        "llama3.2-1b", "mamba2-1.3b", "zamba2-2.7b", "olmo-1b", "smollm-360m",
+        "qwen3-14b"))
+    mixtral = replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS)
+    whisper, llava = get_config("whisper-tiny"), get_config("llava-next-mistral-7b")
     add(phase_ipc(smi))
     for cfg in (llama, mamba, zamba, olmo, smollm, qwen3):
         add(phase_prefill(cfg))

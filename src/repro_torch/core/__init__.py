@@ -4,7 +4,10 @@ channel grants (``ca``, ``signature``), frames and their MACs
 word-count workload (``wordcount``), the service gateway (``gateway``:
 named services, clients, the coalescer, QoS, replica fleets and their
 supervisor), the process transports and the REST / socket-RPC baselines
-(``procwire``) and the fault-injection fabric (``faultwire``).
+(``procwire``), the fault-injection fabric (``faultwire``), and the
+device fabric between ranks (``fabric``: guarded channels and collectives
+over ``torch.distributed``) with its sequence-parallel attention
+(``ring_attention``).
 
 ``ALL_TRANSPORTS`` is what a gateway or a fleet resolves a transport name
 against: the in-process ``TRANSPORTS`` plus ``procwire``'s
@@ -39,8 +42,10 @@ from repro_torch.core.faultwire import (FaultFabric, FaultPlan,  # noqa: E402
                                         FaultyClient)
 from repro_torch.core.transports import (ResponseTimeout,  # noqa: E402
                                          ServiceCrashed, ServiceUnavailable)
+from repro_torch.core import fabric, ring_attention  # noqa: E402
 
-__all__ = ["ca", "domains", "framing", "gateway", "faultwire", "procwire",
+__all__ = ["ca", "domains", "fabric", "framing", "gateway", "faultwire",
+           "procwire", "ring_attention",
            "signature", "transports", "wordcount", "AccessViolation",
            "DomainKey", "KeyRegistry", "ProtectionDomain", "READ", "RW",
            "WRITE", "mac_seed", "TRANSPORTS", "PROC_TRANSPORTS",

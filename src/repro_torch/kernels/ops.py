@@ -155,6 +155,22 @@ def attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     return out
 
 
+def attention_lse(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                  window: Optional[int] = None):
+    """Forward-only :func:`attention` that also returns each row's
+    log-sum-exp → (out in q's dtype, lse (B, Sq, H) f32, NEG_INF on dead
+    rows): the partial that ``core.ring_attention`` merges. On a CUDA
+    tensor that requires grad it raises."""
+    if not _on_cuda(q):
+        return _fa.flash_attention_plain(q, k, v, q_pos, kv_pos, causal=causal,
+                                         window=window, return_lse=True)
+    refuse_grad("attention_lse", q, k, v)
+    out = _fa.flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=causal,
+                                   window=window, return_lse=True)
+    LAUNCHES.bump("flash_attention")
+    return out
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable attention, the port of ``flash_jnp._flash`` (its
     ``custom_vjp``): ``FlashAttention.apply(q, k, v, q_pos, kv_pos, causal,

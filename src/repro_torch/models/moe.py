@@ -85,28 +85,46 @@ def _route(cfg: ModelConfig, p, x_flat: torch.Tensor, min_capacity: int = 1):
     return route, {"moe_lb_loss": lb, "moe_z_loss": z, "moe_drop_frac": dropped}
 
 
-def _moe_ffn_flat(cfg: ModelConfig, p, xf: torch.Tensor, min_capacity: int = 1
-                  ) -> Tuple[torch.Tensor, dict]:
-    """One routing group: xf (T, D) → (out (T, D), aux)."""
-    act = _ACTIVATIONS[cfg.act]
-    E, D = cfg.moe.num_experts, xf.shape[-1]
-    route, aux = _route(cfg, p, xf, min_capacity)
+def dispatch(route: dict, xf: torch.Tensor, n_experts: int):
+    """One routing group's expert input: each kept (token, choice) pair's
+    row of xf (T, D) copied to its slot → ((E, C, D) input, (T, k) flat
+    slots). A dropped pair's flat slot is 0: it is combined with weight 0
+    and writes nowhere."""
     C = route["capacity"]
-    # the flat (E·C) slot of each pair; a dropped pair reads slot 0 with
-    # weight 0 and writes nowhere
     flat = route["expert"] * C + torch.where(route["keep"], route["slot"], 0)
     kept = route["keep"].reshape(-1)
     token = torch.arange(xf.shape[0], device=xf.device).repeat_interleave(
         route["keep"].shape[1])
-    expert_in = xf.new_zeros((E * C, D)).index_copy(
-        0, flat.reshape(-1)[kept], xf[token[kept]]).view(E, C, D)
-    h = act(torch.bmm(expert_in, p["gate"].to(xf.dtype)))
-    h = h * torch.bmm(expert_in, p["up"].to(xf.dtype))
-    out = torch.bmm(h, p["down"].to(xf.dtype)).view(E * C, D)
-    w = route["weight"].to(xf.dtype)
+    expert_in = xf.new_zeros((n_experts * C, xf.shape[-1])).index_copy(
+        0, flat.reshape(-1)[kept], xf[token[kept]])
+    return expert_in.view(n_experts, C, xf.shape[-1]), flat
+
+
+def expert_ffn(cfg: ModelConfig, p, expert_in: torch.Tensor) -> torch.Tensor:
+    """The experts' gated FFNs over their rows: (E, R, D) → (E, R, D), with
+    p's gate / up (E, D, F) and down (E, F, D) in the input's dtype."""
+    act = _ACTIVATIONS[cfg.act]
+    h = act(torch.bmm(expert_in, p["gate"].to(expert_in.dtype)))
+    h = h * torch.bmm(expert_in, p["up"].to(expert_in.dtype))
+    return torch.bmm(h, p["down"].to(expert_in.dtype))
+
+
+def combine(route: dict, flat: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Each token's kept slots of the (E, C, D) expert output, summed with
+    their weights in f32 → (T, D) in the output's dtype."""
+    out = out.reshape(-1, out.shape[-1])
+    w = route["weight"].to(out.dtype)
     y = sum(out[flat[:, j]].float() * w[:, j:j + 1].float()
             for j in range(flat.shape[1]))
-    return y.to(xf.dtype), aux
+    return y.to(out.dtype)
+
+
+def _moe_ffn_flat(cfg: ModelConfig, p, xf: torch.Tensor, min_capacity: int = 1
+                  ) -> Tuple[torch.Tensor, dict]:
+    """One routing group: xf (T, D) → (out (T, D), aux)."""
+    route, aux = _route(cfg, p, xf, min_capacity)
+    expert_in, flat = dispatch(route, xf, cfg.moe.num_experts)
+    return combine(route, flat, expert_ffn(cfg, p, expert_in)), aux
 
 
 def apply_moe(cfg: ModelConfig, p, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:

@@ -1,17 +1,59 @@
-"""Recovery and scaling policies for the service plane (the port of the
-pure planners of ``repro.runtime.elastic``).
+"""Elastic scaling and recovery policies (the port of
+``repro.runtime.elastic``).
 
 Each planner is a pure decision over a snapshot (no side effects), so a
 supervisor's sweeps replay exactly: :func:`plan_gateway_recovery` over a
 gateway's health snapshot (``fault.GatewaySupervisor``),
 :func:`plan_fleet_scaling` and :func:`plan_outlier_ejection` over a
-replica fleet's snapshot (``core.gateway.FleetSupervisor``).
+replica fleet's snapshot (``core.gateway.FleetSupervisor``), and
+:func:`plan_remesh` over the count of surviving ranks of a training job:
+tensor parallelism (the ``model`` axis) is pinned, since its size is a
+property of the model's memory footprint, and the data-parallel axis
+shrinks to the whole rows that survive. :func:`remesh` builds that mesh
+(a ``DeviceMesh`` over the first dp · tp ranks of the world).
 
-Not ported yet (the multi-device fabric, ROADMAP.md queue 1, item 5): the
-reference's ``plan_remesh``, ``remesh`` and ``elastic_restore``, which
-re-mesh a training job after chip failures.
+Not ported yet (ROADMAP.md queue 1, item 6, with the sharding specs it
+takes): the reference's ``elastic_restore``, which places a checkpoint on
+the new mesh.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
+
+
+def plan_remesh(n_alive_chips: int, tp: int = 16,
+                axes=("data", "model")) -> Optional[Tuple[Tuple[int, int], Tuple[str, str]]]:
+    """→ ((dp, tp), axes) for the largest mesh the survivors support, or
+    None if fewer than one TP row survives."""
+    dp = n_alive_chips // tp
+    if dp < 1:
+        return None
+    return (dp, tp), tuple(axes)
+
+
+def remesh(n_alive_chips: int, tp: int = 16, axes=("data", "model"),
+           device="cuda"):
+    """The mesh :func:`plan_remesh` chooses, over ranks 0 … dp·tp − 1 of the
+    world (every rank calls it; a rank outside the mesh has no
+    coordinate in it). Raises RuntimeError if fewer than one TP row
+    survives."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.device import resolve
+
+    plan = plan_remesh(n_alive_chips, tp, axes)
+    if plan is None:
+        raise RuntimeError(
+            f"not enough chips ({n_alive_chips}) for one tp={tp} row")
+    (dp, tp), names = plan
+    if dp * tp > dist.get_world_size():
+        raise ValueError(f"a ({dp}, {tp}) mesh needs {dp * tp} ranks; the "
+                         f"world holds {dist.get_world_size()}")
+    return DeviceMesh(resolve(device).type,
+                      torch.arange(dp * tp).reshape(dp, tp),
+                      mesh_dim_names=names)
 
 
 def plan_gateway_recovery(health: dict, restartable: set) -> list:

@@ -319,8 +319,10 @@ def test_overloaded_sheds_typed_over_the_wire():
     typed Overloaded carrying retry_after, reconstructed on the client
     side of the wire; hysteretic recovery admits again after the drain."""
     gate = threading.Event()
+    entered = threading.Event()
 
     def blocking(req):
+        entered.set()
         gate.wait(10.0)
         return np.asarray(req)
 
@@ -333,12 +335,17 @@ def test_overloaded_sheds_typed_over_the_wire():
         holder = threading.Thread(
             target=lambda: c.call("busy", np.zeros(2, np.uint8)))
         holder.start()
+        # probe only once the holder's call is admitted and inside the
+        # handler: a probe that arrives first is admitted itself, the
+        # holder is shed, and probes left blocked in the handler keep the
+        # gauge above the low-water mark past the drain
+        entered.wait(5.0)
+        probe = gw.connect("probe")
         deadline = time.monotonic() + 5.0
         caught = None
         while time.monotonic() < deadline:
             try:
-                gw.connect("probe").call("busy", np.zeros(2, np.uint8),
-                                         timeout=0.5)
+                probe.call("busy", np.zeros(2, np.uint8), timeout=0.5)
             except Overloaded as e:
                 caught = e
                 break

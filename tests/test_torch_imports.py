@@ -90,3 +90,25 @@ def test_port_sources_name_neither_jax_nor_repro():
     for path in (SRC / "repro_torch").rglob("*.py"):
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+FABRIC_MODULES = ("repro_torch.core.fabric", "repro_torch.core.ring_attention",
+                  "repro_torch.models.moe_ep", "repro_torch.runtime.pipeline",
+                  "repro_torch.optim.compression", "repro_torch.launch.mesh",
+                  "repro_torch.launch.world")
+
+
+def test_fabric_modules_import_without_jax_or_repro():
+    """The device fabric and its users are among the modules the probe
+    imports with JAX and ``repro`` refused, and none of them asks for the
+    fork start method (their ranks start from the forkserver)."""
+    names = set(_probe()[-2].split())
+    assert set(FABRIC_MODULES) <= names
+    for mod in FABRIC_MODULES:
+        path = SRC / (mod.replace(".", "/") + ".py")
+        text = path.read_text()
+        assert "fork\")" not in text.replace("forkserver\")", ""), path
+        assert "fork')" not in text.replace("forkserver')", ""), path
+        assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}, path
+    from repro_torch.launch import world
+    assert world._CTX.get_start_method() == "forkserver"
