@@ -15,9 +15,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              flash attention at 2e-5 in f32 and 2e-2 in bf16, decode each
              call twice, with fully masked splits, one split, the long
              cache, Dh 80 with g = 5 and 6; flash attention at Dh 64, 80
-             and 128 and its log-sum-exp; the flash backward against its
-             plain version at 1e-4 in f32 and 2e-2 in bf16, relative and
-             absolute, Dh 64, 80, 128, g 1, 4, 5, lengths off its tiles,
+             and 128 (g 6 at Dh 128: grok-1-314b's 48/8 heads) and its
+             log-sum-exp; the flash backward against its plain version at
+             1e-4 in f32 and 2e-2 in bf16, relative and absolute, Dh 64,
+             80, 128, g 1, 4, 5, 6, lengths off its tiles,
              each call twice; the SSD scan at 1e-4 in f32 and 2e-2 in bf16,
              relative and absolute, with mamba2-1.3b's decays; the SSD
              backward the same way at mamba2's and zamba2's shapes, ragged
@@ -82,8 +83,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              then llava-next-mistral-7b at full depth (32 layers, 14.5 GB)
              over 2 prompts of 6144 tokens whose first 2880 positions are
              projected patch embeddings (32 flash a call, the window
-             binds), and whisper-tiny over 8 x 1500 frames and 8 x 448
-             tokens (12 flash a call: 4 encoder, 4 self, 4 cross).
+             binds), grok-1-314b cut to 2 of its 64 layers (22.9 GB of
+             bf16 weights; 48/8 heads of 128, 8 experts of d_ff 32768) at
+             4 x 2048 (2 flash a call, its ``moe_drop_frac``), and
+             whisper-tiny over 8 x 1500 frames and 8 x 448 tokens (12
+             flash a call: 4 encoder, 4 self, 4 cross).
              Then smollm-360m in the JAX package's padded 32/8 head layout
              (its weights embedded with zero pad rows) against the unpadded
              model in f32 at full depth: identical argmax, max abs
@@ -96,9 +100,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              transport of its own with the engine idle and ticking; then
              mamba2-1.3b, zamba2-2.7b, olmo-1b,
              smollm-360m, qwen3-14b, mixtral-8x7b (16 layers; max_seq
-             1024 is inside its window, a dense cache) and
-             llava-next-mistral-7b with 8 clients through the service
-             step (``serve_frame``). Every request and response is a
+             1024 is inside its window, a dense cache),
+             llava-next-mistral-7b and grok-1-314b (2 layers) with 8
+             clients through the service step (``serve_frame``). Every request and response is a
              sealed frame; a tampered frame must be refused. The launch
              counts are zeroed just before and read just after; each kernel
              of the path must be > 0, and decode attention must launch once
@@ -167,8 +171,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              (llama 384 flash; mamba2 1152 SSD; zamba2 2592 SSD and 432
              flash; olmo 384 flash; smollm 768 flash); whisper-tiny the
              same at 8 x 448 tokens over 1500 frames (288 flash: 12 a
-             microbatch). Then one 1 x 512 microbatch for llama, mamba2
-             and olmo-1b, 1 x 448 for whisper: loss and gradients
+             microbatch). Then the four whose state does not fit at full
+             depth, cut to ``chip_smoke.py``'s constants, 4 steps each:
+             qwen3-14b (4 of 40 layers, f32, 46.0 GB of state) at 8 x 2048
+             in microbatches of 2; mixtral-8x7b (2 of 32, f32, 50.6 GB)
+             and llava-next-mistral-7b (12 of 32, f32, 46.1 GB, 2880 patch
+             embeddings a row) at 2 x 6144 in microbatches of 1 (the
+             window binds), with remat; grok-1-314b (1 of 64) with bf16
+             parameters and moments (``launch.train.TRAIN_PARAM_DTYPE`` /
+             ``TRAIN_OPT_DTYPE``, 52.2 GB) at 2 x 2048 in one microbatch,
+             with remat. Each line prints the dtypes, remat and the bytes
+             of state; under remat the forward kernels launch twice a
+             block and microbatch (the recompute), the backward once; the
+             peak must stay under 80 GB. Then remat itself: llama3.2-1b
+             one step of 8 x 2048 each way from the same state (losses,
+             peaks, launches) and the first microbatch's gradients each
+             way (equal bit for bit; the remat peak must be lower), the
+             same for mixtral-8x7b (2 of 32 layers, one step of 1 x 4224:
+             the window binds and the MoE routing is recomputed; the
+             state and gradients set its peak, so it is printed only), and
+             zamba2-2.7b 2 steps in microbatches of 2
+             with remat (its peak beside microbatch 1 without it). Then
+             one 1 x 512 microbatch for llama, mamba2, olmo-1b, qwen3-14b
+             (2 layers) and grok-1-314b (1 layer; the f32 gradients kept
+             on the host), 1 x 448 for whisper and 1 x 4224 for
+             mixtral-8x7b (2 layers, the window binds): loss and gradients
              through the kernels in bf16 against the plain versions in f32
              (loss to 2e-2 relative, every gradient leaf at cosine >= 0.99).
 6. parity  — in f32 at full width: the llama engine with the decode-attention
@@ -176,7 +203,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              the reduced engine on the card equals it on the CPU; and for
              the three families and whisper-tiny at full depth, and
              olmo-1b, smollm-360m, qwen3-14b, mixtral-8x7b and llava at 2
-             layers, the forward with the kernels equals the forward with
+             layers and grok-1-314b at 1 (26 GB of f32 weights), the
+             forward with the kernels equals the forward with
              the plain versions (mixtral's and llava's over 4224 tokens,
              past the window, llava's with its vision prefix), and the
              last prefill logits equal ``decode_step`` run token by token
@@ -194,7 +222,11 @@ nodes of a CUDA graph that captures the call (1, 3, 3 and 6), ``pass_ms`` (the f
 from the profiler's device times), ``at_dh80`` for both flash rows
 (zamba2-2.7b's attention), ``at_qwen3`` and ``at_mixtral`` for the forward
 (4 x 2048, 40/8 heads of 128; 2 x 6144, 32/8 heads with the window of
-4096), ``at_olmo`` for the backward (2 x 2048, 16 heads of 128, MHA), and
+4096) and ``at_grok`` (4 x 2048, 48/8 heads of 128) for the forward,
+``at_olmo`` (2 x 2048, 16 heads of 128, MHA), ``at_qwen3`` (2 x 2048,
+40/8 of 128), ``at_mixtral`` (1 x 6144, 32/8 of 128, window 4096; SDPA's
+backward with the same pairs as a boolean mask) and ``at_grok`` (2 x
+2048, 48/8 of 128) for the backward, and
 ``tensor_core_instr``, the HGMMA/HMMA
 instructions in the SASS of their bf16 kernels (the flash backward's must
 be HGMMA); the SSD backward's row adds its ``heads_per_tile``; the decode-attention, guard_copy, mac_batch and mac_update
@@ -239,6 +271,19 @@ ZAMBA_MICRO = 1
 # mixtral-8x7b's depth on one card: 16 of its 32 layers are 46.4 GB of bf16
 # weights (all 32: 93 GB, more than the card's 80)
 MIXTRAL_LAYERS = 16
+# training depths on one card (bytes of state: parameters, gradients and
+# two AdamW moments, launch.train.train_bytes_per_param times param_count):
+# qwen3-14b 4 of 40 layers, f32, 46.0 GB (all 40: 236 GB)
+QWEN3_TRAIN_LAYERS = 4
+# mixtral-8x7b 2 of 32, f32, 50.6 GB (3 would be 73.9 GB before activations)
+MIXTRAL_TRAIN_LAYERS = 2
+# llava-next-mistral-7b 12 of 32, f32, 46.1 GB (all 32: 116 GB)
+LLAVA_TRAIN_LAYERS = 12
+# grok-1-314b 1 of 64, bf16 parameters, gradients and moments, 52.2 GB
+# (a layer is 4.92 G parameters, the embeddings and head 1.61 G)
+GROK_TRAIN_LAYERS = 1
+# grok-1-314b served and prefilled: 2 of 64 layers, 22.9 GB of bf16 weights
+GROK_SERVE_LAYERS = 2
 # the JAX package's padded head layout for smollm-360m (launch/dryrun.py)
 SMOLLM_PADS = dict(pad_q_heads=32, pad_kv_heads=8)
 # whisper-tiny's published text context: its decoder's prompts and cache
@@ -648,6 +693,9 @@ def check_flash(gen):
         (2, 257, 257, 10, 2, 80, True, None, 3, 2, "ordered"),
         (2, 190, 600, 12, 2, 80, False, 70, 0, 3, "perm"),
         (3, 1, 333, 5, 1, 80, True, 64, 3, 0, "ordered"),
+        # g = 6 at Dh 128 (grok-1-314b's 48/8 heads), with and without a window
+        (2, 257, 257, 12, 2, 128, True, None, 3, 2, "ordered"),
+        (1, 300, 300, 6, 1, 128, True, 100, 0, 0, "ordered"),
         # whisper-tiny's encoder and cross-attention (non-causal, 1500 frames
         # off the tiles) and its decoder's self-attention, at their shapes
         (8, 1500, 1500, 6, 6, 64, False, None, 0, 0, "ordered"),
@@ -716,6 +764,9 @@ def check_flash_bwd(gen):
         (1, 383, 383, 10, 2, 80, True, 100, 3, 1),
         (1, 1, 129, 4, 1, 128, True, None, 0, 0),
         (2, 191, 64, 4, 4, 128, False, None, 1, 2),
+        # g = 6 at Dh 128 (grok-1-314b's 48/8 heads), with and without a window
+        (1, 257, 257, 12, 2, 128, True, None, 3, 2),
+        (1, 300, 300, 6, 1, 128, True, 100, 0, 0),
         # whisper-tiny's training microbatch: cross (448 over 1500) and
         # encoder attention non-causal, decoder self-attention causal
         (2, 448, 1500, 6, 6, 64, False, None, 0, 0),
@@ -2764,24 +2815,35 @@ def phase_ring_parity(cfg, B=2, extra=256):
 # 4. train at full width
 # ---------------------------------------------------------------------------
 
-def phase_train(cfg, steps=6, batch=8, seq=2048, micro=2):
-    """The port's ``Trainer`` at full width and depth: f32 parameters and
-    AdamW moments, bf16 compute, a global batch of ``batch`` x ``seq`` in
-    microbatches of ``micro``, ``steps`` steps at lr 3e-4 with 2 warmup
-    steps on the ``SyntheticDataset``. The launch counts are zeroed just
-    before and read just after; every attention and mamba block of every
-    microbatch must run its kernel's forward and backward once."""
+def phase_train(cfg, steps=6, batch=8, seq=2048, micro=2,
+                param_dtype=torch.float32, opt_dtype=torch.float32, remat=False,
+                beside=None):
+    """The port's ``Trainer`` at full width (the depth the caller gives):
+    ``param_dtype`` parameters, ``opt_dtype`` AdamW moments, bf16 compute,
+    a global batch of ``batch`` x ``seq`` in microbatches of ``micro``,
+    ``steps`` steps at lr 3e-4 with 2 warmup steps on the
+    ``SyntheticDataset``, each layer under remat where asked. The launch
+    counts are zeroed just before and read just after; every attention and
+    mamba block of every microbatch must run its kernel's backward once and
+    its forward once, twice under remat (the recompute). ``beside``: fields
+    of an earlier line of this run to print beside this one. → (the launch
+    counts, the peak memory in GB)."""
     from repro_torch.configs import OptimizerConfig, TrainConfig
     from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_bytes_per_param
+    from repro_torch.models import Impl
     from repro_torch.runtime import Trainer, TrainReport, make_prefill_step
     from repro_torch.tree import leaves
 
     tcfg = TrainConfig(microbatch_size=micro, dtype="bfloat16",
+                       param_dtype=str(param_dtype).removeprefix("torch."),
                        optimizer=OptimizerConfig(lr=3e-4, warmup_steps=2,
                                                  total_steps=steps),
                        log_every=0, seed=0)
-    trainer = Trainer(cfg, tcfg, global_batch=batch, seq_len=seq, device="cuda")
+    trainer = Trainer(cfg, tcfg, global_batch=batch, seq_len=seq, device="cuda",
+                      impl=Impl(remat=remat), opt_dtype=opt_dtype)
     state = trainer.init_state(seed=5)
+    n_params = sum(p.numel() for p in leaves(state["params"]))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     report = TrainReport()
@@ -2797,40 +2859,144 @@ def phase_train(cfg, steps=6, batch=8, seq=2048, micro=2):
     runs = (batch // micro) * steps
     losses = report.losses
     check(report.steps_run == steps and all(map(math.isfinite, losses)),
-          f"train: {report.steps_run} steps, losses {losses}")
-    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+          f"{cfg.name} train: {report.steps_run} steps, losses {losses}")
+    check(losses[-1] < losses[0], f"{cfg.name} train: the loss did not fall: {losses}")
     for kernel, per_call in layer_kernels(cfg).items():
-        for name in (kernel, f"{kernel}_bwd"):
-            check(launches[name] == per_call * runs,
-                  f"train: {launches[name]} {name} launches, want {per_call * runs}")
+        for name, times in ((kernel, 2 if remat else 1), (f"{kernel}_bwd", 1)):
+            check(launches[name] == per_call * runs * times,
+                  f"{cfg.name} train: {launches[name]} {name} launches, want "
+                  f"{per_call * runs * times}")
+    check(all(p.dtype == param_dtype for p in leaves(state["params"]))
+          and all(m.dtype == opt_dtype for m in leaves(state["opt"]["m"])),
+          f"{cfg.name} train: the state left its dtypes")
     ms = (t2 - t1) / (steps - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 80, f"{cfg.name} train: peak {peak} GB")
     emit(phase="train", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-         params=sum(p.numel() for p in leaves(state["params"])),
-         param_dtype="float32", moment_dtype="float32", compute_dtype="bfloat16",
+         params=n_params, param_dtype=tcfg.param_dtype,
+         moment_dtype=str(opt_dtype).removeprefix("torch."), compute_dtype="bfloat16",
+         remat=remat,
+         state_bytes=n_params * train_bytes_per_param(param_dtype, opt_dtype,
+                                                      batch // micro),
          global_batch=batch, seq_len=seq, microbatch=micro, steps=steps, lr=3e-4,
-         warmup_steps=2, losses=losses, first_step_s=t1 - t0, ms_per_step=ms,
-         tokens_per_s=batch * seq / ms * 1e3,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+         warmup_steps=2, vision_tokens=cfg.vision_tokens or None, losses=losses,
+         first_step_s=t1 - t0, ms_per_step=ms, tokens_per_s=batch * seq / ms * 1e3,
+         peak_mem_gb=peak, launches=launches, **(beside or {}))
     # the trained state serves without a graph: the step put requires_grad back
     check(not any(p.requires_grad for p in leaves(state["params"])),
           "train: the step left the parameters requiring grad")
-    logits = make_prefill_step(cfg)(state["params"], model_batch(
-        cfg, 1, 128, torch.Generator(device="cuda").manual_seed(SEED)))
+    prompt = model_batch(cfg, 1, 128, torch.Generator(device="cuda").manual_seed(SEED))
+    prompt.pop("vision_embeds", None)                    # text: 128 < the prefix
+    logits = make_prefill_step(cfg)(state["params"], prompt)
     check(logits.grad_fn is None and bool(torch.isfinite(logits).all()),
           "train: a prefill of the trained state built a graph or is not finite")
     del trainer, state, logits
     torch.cuda.empty_cache()
-    return launches
+    return launches, peak
 
 
-def phase_grad_parity(cfg, S=512):
+def phase_remat(cfg, batch=8, seq=2048, micro=2, peak_drops=True):
+    """Remat against no remat at full width: one train step of ``batch`` x
+    ``seq`` (microbatches of ``micro``) each way from the same state, seed
+    and data (losses, peaks, launches: the forward kernels twice under
+    remat, the backward once), and the gradients of the step's first
+    microbatch each way, equal bit for bit (the recompute runs the same
+    kernels on the same inputs, and a MoE layer's routing picks the same
+    experts). With ``peak_drops`` the step's peak must be lower under
+    remat; without it the peak is printed only (mixtral-8x7b's 2 layers at
+    1 x 4224: the state and the gradients set the step's peak, 53.97 GB
+    either way on an H100 80GB HBM3 at 700 W). → the launch counts of the
+    two steps."""
+    from repro_torch.configs import OptimizerConfig, TrainConfig
+    from repro_torch.data import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.models import Impl, loss_fn
+    from repro_torch.runtime import Trainer, TrainReport
+    from repro_torch.tree import leaves
+
+    tcfg = TrainConfig(microbatch_size=micro, dtype="bfloat16",
+                       optimizer=OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=6),
+                       log_every=0, seed=0)
+    runs = batch // micro
+    out, total = {}, {}
+    for remat in (False, True):
+        trainer = Trainer(cfg, tcfg, global_batch=batch, seq_len=seq, device="cuda",
+                          impl=Impl(remat=remat))
+        state = trainer.init_state(seed=5)
+        mb = to_device(trainer.dataset.batch(0, micro), "cuda")
+        flat = [p.requires_grad_(True) for p in leaves(state["params"])]
+        loss, _ = loss_fn(cfg, state["params"], mb, impl=Impl(remat=remat),
+                          dtype=torch.bfloat16)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, flat)]   # off the peak
+        for p in flat:
+            p.requires_grad_(False)
+        del loss
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        report = TrainReport()
+        ops.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        trainer.run(1, state=state, report=report)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.LAUNCHES.snapshot()
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        for kernel, per_call in layer_kernels(cfg).items():
+            for name, times in ((kernel, 2 if remat else 1), (f"{kernel}_bwd", 1)):
+                check(launches[name] == per_call * runs * times,
+                      f"{cfg.name} remat {remat}: {launches[name]} {name} launches, "
+                      f"want {per_call * runs * times}")
+        out[remat] = dict(loss=report.losses[0], grads=grads, s=wall,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          launches=launches)
+        del trainer, state, flat
+        torch.cuda.empty_cache()
+    off, on = out[False], out[True]
+    identical = all(torch.equal(a, b) for a, b in zip(on["grads"], off["grads"]))
+    rel = 0.0 if identical else max(
+        ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        for a, b in zip(on["grads"], off["grads"]))
+    check(identical and on["loss"] == off["loss"],
+          f"{cfg.name} remat: losses {on['loss']} / {off['loss']}, gradients differ "
+          f"by {rel} of a leaf's largest |g|")
+    check(not peak_drops or on["peak_mem_gb"] < off["peak_mem_gb"],
+          f"{cfg.name} remat: peak {on['peak_mem_gb']} GB, without {off['peak_mem_gb']}")
+    emit(phase="remat", arch=cfg.name, layers=cfg.num_layers, global_batch=batch,
+         seq_len=seq, microbatch=micro, dtype="bfloat16", loss=off["loss"],
+         loss_remat=on["loss"], max_grad_rel_diff=rel, grads_identical=identical,
+         step_s=off["s"], step_s_remat=on["s"], peak_mem_gb=off["peak_mem_gb"],
+         peak_mem_gb_remat=on["peak_mem_gb"], launches=off["launches"],
+         launches_remat=on["launches"])
+    del out, off, on
+    torch.cuda.empty_cache()
+    return total
+
+
+def _cosine(a, b, piece=1 << 25):
+    """Cosine similarity of two tensors of one shape, on the card in f64,
+    a piece at a time (either may live on the host)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    dots = torch.zeros(3, dtype=torch.float64, device="cuda")
+    for i in range(0, a.numel(), piece):
+        x = a[i:i + piece].to("cuda").double()         # widened on the card
+        y = b[i:i + piece].to("cuda").double()
+        dots += torch.stack([x @ y, x @ x, y @ y])
+    ab, aa, bb = dots.tolist()
+    return ab / max(math.sqrt(aa * bb), 1e-300)
+
+
+def phase_grad_parity(cfg, S=512, host=False):
     """One microbatch of 1 x ``S`` at full width: loss and gradients
     through the kernels in bf16 against the plain versions in f32
     (``Impl(attention="plain", ssd="plain")``, f32 parameters both times):
     the loss to 2e-2 relative, and every gradient leaf at cosine >= 0.99
     with its f32 counterpart. ``min_cosine_plain_bf16`` is the same
     measure for the plain versions in bf16: the share of the bf16 gap that
-    is not the kernels'."""
+    is not the kernels'. The f32 gradients are kept (on the host with
+    ``host``: grok-1-314b's layer is 26 GB of f32 parameters and 26 GB a
+    set of gradients, and two sets beside the parameters do not fit), the
+    others compared with them as they come."""
     from repro_torch.data import SyntheticDataset, to_device
     from repro_torch.models import Impl, init_params, loss_fn
     from repro_torch.tree import leaves_with_paths
@@ -2839,29 +3005,30 @@ def phase_grad_parity(cfg, S=512):
     batch = to_device(SyntheticDataset(cfg, S, seed=1).batch(0, 1), "cuda")
     flat = [p.requires_grad_(True) for _, p in leaves_with_paths(params)]
     names = [n for n, _ in leaves_with_paths(params)]
-    out = {}
     plain = Impl(attention="plain", ssd="plain")
-    for label, impl, dtype in (("bf16", Impl(), torch.bfloat16),
-                               ("f32", plain, torch.float32),
-                               ("plain_bf16", plain, torch.bfloat16)):
+    torch.cuda.reset_peak_memory_stats()
+
+    def grads_of(impl, dtype):
         loss, _ = loss_fn(cfg, params, batch, impl=impl, dtype=dtype)
-        grads = torch.autograd.grad(loss, flat)
-        out[label] = (loss.item(), grads)
-        del loss
-    (lb, gb), (lf, gf) = out["bf16"], out["f32"]
-    cos_plain = min(torch.nn.functional.cosine_similarity(
-        a.flatten().double(), b.flatten().double(), dim=0).item()
-        for a, b in zip(out["plain_bf16"][1], gf))
+        return loss.item(), torch.autograd.grad(loss, flat)
+
+    lf, gf = grads_of(plain, torch.float32)
+    if host:
+        gf = [g.cpu() for g in gf]
+    lb, grads = grads_of(Impl(), torch.bfloat16)
+    cos = {n: _cosine(a, b) for n, a, b in zip(names, grads, gf)}
+    del grads
+    _, grads = grads_of(plain, torch.bfloat16)
+    cos_plain = min(_cosine(a, b) for a, b in zip(grads, gf))
+    del grads
     rel = abs(lb - lf) / abs(lf)
-    check(rel <= 2e-2, f"grad parity: bf16 loss {lb} vs f32 {lf} ({rel})")
-    cos = {n: torch.nn.functional.cosine_similarity(
-        a.flatten().double(), b.flatten().double(), dim=0).item()
-        for n, a, b in zip(names, gb, gf)}
-    check(all(c >= 0.99 for c in cos.values()), f"grad parity: cosines {cos}")
-    emit(phase="grad_parity", arch=cfg.name, batch=1, seq_len=S, loss_bf16=lb,
-         loss_f32=lf, loss_rel_diff=rel, min_cosine=min(cos.values()),
-         min_cosine_plain_bf16=cos_plain, cosine=cos)
-    del params, out, gb, gf, flat
+    check(rel <= 2e-2, f"{cfg.name} grad parity: bf16 loss {lb} vs f32 {lf} ({rel})")
+    check(all(c >= 0.99 for c in cos.values()), f"{cfg.name} grad parity: cosines {cos}")
+    emit(phase="grad_parity", arch=cfg.name, layers=cfg.num_layers, batch=1, seq_len=S,
+         window=cfg.swa_window, grads_on_host=host, loss_bf16=lb, loss_f32=lf,
+         loss_rel_diff=rel, min_cosine=min(cos.values()), min_cosine_plain_bf16=cos_plain,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, cosine=cos)
+    del params, gf, flat
     torch.cuda.empty_cache()
 
 
@@ -3266,6 +3433,7 @@ def flash_row(gen, launches, err):
     row["at_dh80"] = flash_at(gen, 4, 2048, 32, 32, 80)
     row["at_qwen3"] = flash_at(gen, 4, 2048, 40, 8, 128)
     row["at_mixtral"] = flash_at(gen, 2, 6144, 32, 8, 128, window=4096)
+    row["at_grok"] = flash_at(gen, 4, 2048, 48, 8, 128)
     row["at_whisper_enc"] = flash_at(gen, 8, 1500, 6, 6, 64, causal=False)
     row["at_whisper_cross"] = flash_at(gen, 8, 1500, 6, 6, 64, Sq=448, causal=False)
     return row
@@ -3275,7 +3443,8 @@ def flash_at(gen, B, S, H, Hkv, Dh, window=None, Sq=None, causal=True):
     """The forward over B rows of ``Sq`` queries (default S) at the last
     positions of S keys, H query heads over Hkv kv heads of Dh, causal
     (within ``window`` if given) or not, bf16: zamba2-2.7b's attention
-    (Dh 80, MHA), qwen3-14b's prefill, mixtral-8x7b's past its window,
+    (Dh 80, MHA), qwen3-14b's prefill, grok-1-314b's (48/8 heads of 128,
+    g 6), mixtral-8x7b's past its window,
     whisper-tiny's encoder (non-causal) and cross-attention (448 queries
     over 1500 frames). ms, plain ms, the bound from this run's valid pairs,
     SDPA (``is_causal``, no mask when non-causal, or the same pairs as a
@@ -3317,26 +3486,33 @@ def flash_at(gen, B, S, H, Hkv, Dh, window=None, Sq=None, causal=True):
 FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma")
 
 
-def flash_bwd_case(gen, B, S, H, Hkv, Dh, Sq=None, causal=True):
+def flash_bwd_case(gen, B, S, H, Hkv, Dh, Sq=None, causal=True, window=None):
     """bf16 inputs of the backward at (B, Sq over S, H/Hkv, Dh), causal or
-    not, the forward kernel's output and log-sum-exp, a random dO; the
-    valid pairs, the bound's bytes and SDPA's backward on the same q, k, v
-    and dO (its forward outside the timing)."""
+    not (within ``window`` if given), the forward kernel's output and
+    log-sum-exp, a random dO; the valid pairs, the bound's bytes and SDPA's
+    backward on the same q, k, v and dO (its forward outside the timing;
+    with a window, the same pairs as a boolean mask)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     Sq = Sq or S
     q, k, v, qp, kp = flash_inputs(gen, B, Sq, S, H, Hkv, Dh, torch.bfloat16, tail=0)
-    out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, causal=causal, return_lse=True)
+    out, lse = fa.flash_attention_cuda(q, k, v, qp, kp, causal=causal, window=window,
+                                       return_lse=True)
     dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
     args = (q, k, v, out, lse, dout, qp, kp)
     ok = (kp[:, None, :] >= 0) & (qp[:, :, None] >= 0)        # (B, Sq, S)
     if causal:
         ok = ok & (kp[:, None, :] <= qp[:, :, None])
+    if window is not None:
+        ok &= (qp[:, :, None] - kp[:, None, :]) < window
     pairs = int(ok.sum())
     nbytes = (2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
               + 4 * (qp.numel() + kp.numel()))
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-    ref = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=H != Hkv)
+    mask = ok[:, None] if window is not None else None
+    ref = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                         is_causal=causal and mask is None,
+                                         enable_gqa=H != Hkv)
     douts = dout.transpose(1, 2)
     lib = cuda_ms(lambda: torch.autograd.grad(ref, (qs, ks, vs), douts, retain_graph=True),
                   20)
@@ -3377,32 +3553,38 @@ def flash_bwd_row(gen, launches, err):
     del args
     row["at_dh80"] = flash_bwd_at(gen, 1, 2048, 32, 32, 80)
     row["at_olmo"] = flash_bwd_at(gen, 2, 2048, 16, 16, 128)
+    row["at_qwen3"] = flash_bwd_at(gen, 2, 2048, 40, 8, 128)
+    row["at_mixtral"] = flash_bwd_at(gen, 1, 6144, 32, 8, 128, window=4096)
+    row["at_grok"] = flash_bwd_at(gen, 2, 2048, 48, 8, 128)
     row["at_whisper_cross"] = flash_bwd_at(gen, 2, 1500, 6, 6, 64, Sq=448, causal=False)
     return row
 
 
-def flash_bwd_at(gen, B, S, H, Hkv, Dh, Sq=None, causal=True):
+def flash_bwd_at(gen, B, S, H, Hkv, Dh, Sq=None, causal=True, window=None):
     """The backward at another training shape, bf16: zamba2-2.7b's
     attention (Dh 80, 32 heads, MHA, its microbatch of 1 x 2048), olmo-1b's
-    (Dh 128, 16 heads, MHA, 2 x 2048), both causal; whisper-tiny's
-    cross-attention (448 queries over 1500 frames, 6 heads of 64, its
-    microbatch of 2), non-causal. ms, earlier ms, pass ms, bound, SDPA's
-    backward and the error against the plain version."""
+    (Dh 128, 16 heads, MHA, 2 x 2048), qwen3-14b's (2 x 2048, 40/8 heads of
+    128, g 5), grok-1-314b's (2 x 2048, 48/8 of 128, g 6), all causal;
+    mixtral-8x7b's and llava's (1 x 6144, 32/8 of 128) with the window of
+    4096 binding; whisper-tiny's cross-attention (448 queries over 1500
+    frames, 6 heads of 64, its microbatch of 2), non-causal. ms, earlier
+    ms, pass ms, bound, SDPA's backward and the error against the plain
+    version."""
     from repro_torch.kernels import flash_attention as fa
     Sq = Sq or S
-    args, pairs, nbytes, lib = flash_bwd_case(gen, B, S, H, Hkv, Dh, Sq, causal)
-    mode = dict(causal=causal)
+    args, pairs, nbytes, lib = flash_bwd_case(gen, B, S, H, Hkv, Dh, Sq, causal, window)
+    mode = dict(causal=causal, window=window)
     got = fa.flash_attention_bwd_cuda(*args, **mode)
     want = fa.flash_attention_bwd_plain(*args, **mode)
     e = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
     excess = max(((g.float() - w.float()).abs() - 2e-2 * (1 + w.float().abs())).max().item()
                  for g, w in zip(got, want))
     check(excess <= 0, f"flash_attention_bwd at ({B}, {Sq} over {S}, {H}/{Hkv}, {Dh}), "
-          f"causal {causal}: over tolerance by {excess}")
+          f"causal {causal}, window {window}: over tolerance by {excess}")
     b_ms, by = bound(nbytes, 10 * Dh * H * pairs, "bf16")
-    what = "causal" if causal else "non-causal"
+    what = ("causal" if causal else "non-causal") + (f", window {window}" if window else "")
     return dict(shape=f"q ({B}, {Sq}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
-                      f"{what}, dO, lse",
+                      f"{what}, dO, lse", valid_pairs=pairs,
                 ms=cuda_ms(lambda: fa.flash_attention_bwd_cuda(*args, **mode), 20),
                 earlier_ms=cuda_ms(lambda: fa._flash_attention_bwd_mma_sync(
                     *args, **mode), 10),
@@ -3498,6 +3680,7 @@ def main():
                                     "src"))
     from repro_torch.configs import get_config, replace
     from repro_torch.device import resolve
+    from repro_torch.launch.train import TRAIN_OPT_DTYPE, TRAIN_PARAM_DTYPE
     resolve("cuda")                          # TF32 off for the f32 phase
 
     t0 = time.perf_counter()
@@ -3515,28 +3698,44 @@ def main():
         "qwen3-14b"))
     mixtral = replace(get_config("mixtral-8x7b"), num_layers=MIXTRAL_LAYERS)
     whisper, llava = get_config("whisper-tiny"), get_config("llava-next-mistral-7b")
+    grok = replace(get_config("grok-1-314b"), num_layers=GROK_SERVE_LAYERS)
     add(phase_ipc(smi))
     for cfg in (llama, mamba, zamba, olmo, smollm, qwen3):
         add(phase_prefill(cfg))
     add(phase_prefill(mixtral, B=2, S=6144))
     add(phase_prefill(llava, B=2, S=6144))
+    add(phase_prefill(grok))
     add(phase_prefill(whisper, B=8, S=WHISPER_TEXT))
     add(phase_padded(smollm, SMOLLM_PADS))
     counts, attn_inputs = phase_serve(llama, sessions=True)
     add(counts)
     add(phase_gateway(llama, smi))
     add(phase_proc(llama, smi))
-    for cfg in (mamba, zamba, olmo, smollm, qwen3, mixtral, llava):
+    for cfg in (mamba, zamba, olmo, smollm, qwen3, mixtral, llava, grok):
         add(phase_serve(cfg, n_clients=8)[0])
     add(phase_decode(whisper, B=8, max_seq=WHISPER_TEXT))
     add(phase_decode(llava, B=8, max_seq=32768))
     add(phase_ring_parity(replace(llava, num_layers=2)))
-    add(phase_train(llama))
-    add(phase_train(mamba))
-    add(phase_train(zamba, micro=ZAMBA_MICRO))
-    add(phase_train(olmo))
-    add(phase_train(smollm))
-    add(phase_train(whisper, seq=WHISPER_TEXT))
+    add(phase_train(llama)[0])
+    add(phase_train(mamba)[0])
+    counts, zamba_peak = phase_train(zamba, micro=ZAMBA_MICRO)
+    add(counts)
+    add(phase_train(olmo)[0])
+    add(phase_train(smollm)[0])
+    add(phase_train(whisper, seq=WHISPER_TEXT)[0])
+    add(phase_train(replace(qwen3, num_layers=QWEN3_TRAIN_LAYERS), steps=4)[0])
+    add(phase_train(replace(mixtral, num_layers=MIXTRAL_TRAIN_LAYERS), steps=4,
+                    batch=2, seq=6144, micro=1, remat=True)[0])
+    add(phase_train(replace(llava, num_layers=LLAVA_TRAIN_LAYERS), steps=4,
+                    batch=2, seq=6144, micro=1, remat=True)[0])
+    add(phase_train(replace(grok, num_layers=GROK_TRAIN_LAYERS), steps=4, batch=2,
+                    param_dtype=TRAIN_PARAM_DTYPE["grok-1-314b"],
+                    opt_dtype=TRAIN_OPT_DTYPE["grok-1-314b"], remat=True)[0])
+    add(phase_remat(llama))
+    add(phase_remat(replace(mixtral, num_layers=MIXTRAL_TRAIN_LAYERS), batch=1,
+                    seq=4224, micro=1, peak_drops=False))
+    add(phase_train(zamba, steps=2, micro=2, remat=True, beside=dict(
+        peak_mem_gb_micro1_no_remat=zamba_peak))[0])
     kernels = kernels_line(llama, launches, err, attn_inputs)
     del attn_inputs
     torch.cuda.empty_cache()
@@ -3544,6 +3743,9 @@ def main():
     phase_grad_parity(mamba)
     phase_grad_parity(olmo)
     phase_grad_parity(whisper, S=WHISPER_TEXT)
+    phase_grad_parity(replace(qwen3, num_layers=2))
+    phase_grad_parity(replace(mixtral, num_layers=2), S=4224)
+    phase_grad_parity(replace(grok, num_layers=1), host=True)
     phase_parity(llama)
     for cfg in (llama, mamba, zamba, whisper):
         phase_prefill_parity(cfg)
@@ -3551,6 +3753,7 @@ def main():
         phase_prefill_parity(replace(cfg, num_layers=2))
     phase_prefill_parity(replace(mixtral, num_layers=2), B=1, S=4224)
     phase_prefill_parity(replace(llava, num_layers=2), B=1, S=4224)
+    phase_prefill_parity(replace(grok, num_layers=1))
     emit(phase="done", wall_s=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -13,8 +13,12 @@ so a checkpoint written by either package restores in the other. The
 manifest is MessagePack (``msgpack_lite``, the subset the manifest uses)
 compressed with stdlib zlib; a manifest compressed with zstd
 (``meta.msgpack.zst``, written by the reference where ``zstandard`` is
-installed) raises a clear error. Leaves are numpy arrays, so a bfloat16
-leaf raises: numpy has no bfloat16.
+installed) raises a clear error. numpy has no bfloat16: a bfloat16 leaf
+is written as its 16-bit patterns, an ``|V2`` entry of the npz with
+"bfloat16" in the manifest's ``dtypes``, as the reference's ``np.savez``
+of an ``ml_dtypes`` bfloat16 array writes it; ``restore`` turns such an
+entry (``|V2`` or uint16) back into a ``torch.bfloat16`` tensor, bit for
+bit.
 
 Atomicity: everything is written into ``<dir>/.tmp_<N>`` and
 ``os.replace``d into place, so a crash mid-save never corrupts the latest
@@ -65,15 +69,32 @@ def _find_meta(path: str) -> Tuple[str, str]:
     raise FileNotFoundError(f"no checkpoint manifest in {path}")
 
 
+_BF16 = "bfloat16"
+_BF16_NPZ = np.dtype("V2")      # what np.savez writes for a bfloat16 array
+
+
 def _host(leaf) -> np.ndarray:
-    """A host numpy copy of a leaf (tensor, numpy array or scalar)."""
+    """A host numpy copy of a leaf (tensor, numpy array or scalar); a
+    bfloat16 tensor's bits as a ``|V2`` array."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise ValueError("checkpoint: bfloat16 leaves are not supported "
-                             "(numpy has no bfloat16); keep f32 parameters "
-                             "and moments")
-        return leaf.detach().to("cpu", copy=True).numpy()
+        host = leaf.detach().to("cpu", copy=True)
+        if host.dtype == torch.bfloat16:
+            return host.view(torch.int16).numpy().view(_BF16_NPZ)
+        return host.numpy()
     return np.array(leaf, copy=True)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return _BF16 if a.dtype == _BF16_NPZ else str(a.dtype)
+
+
+def _leaf(a: np.ndarray, dtype_name: str):
+    """A restored npz entry: a bfloat16 leaf (its 16-bit patterns, ``|V2``
+    or uint16) as a ``torch.bfloat16`` tensor, anything else as it is."""
+    if dtype_name == _BF16 and a.dtype.itemsize == 2 and a.dtype.kind in "Vu":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+            torch.bfloat16)
+    return a
 
 
 def _describe(tree: Any) -> str:
@@ -118,7 +139,7 @@ class Checkpointer:
             "keys": sorted(flat.keys()),
             "treedef": _describe(host_tree),
             "shapes": {k: list(v.shape) for k, v in flat.items()},
-            "dtypes": {k: str(v.dtype) for k, v in flat.items()},
+            "dtypes": {k: _dtype_name(v) for k, v in flat.items()},
         }
         blob = zlib.compress(msgpack_lite.packb(meta), 6)
         with open(os.path.join(tmp, _META_BASENAME + _CODEC_EXT[_CODEC]), "wb") as f:
@@ -154,7 +175,8 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, tree_like, step: Optional[int] = None):
-        """→ (step, a tree of host numpy arrays shaped like ``tree_like``)."""
+        """→ (step, a tree shaped like ``tree_like`` of host numpy arrays
+        and, for bfloat16 leaves, CPU ``torch.bfloat16`` tensors)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -173,5 +195,5 @@ class Checkpointer:
             if isinstance(t, dict):
                 return {k: fill(v, f"{prefix}/{k}" if prefix else str(k))
                         for k, v in t.items()}
-            return arrays[prefix]
+            return _leaf(arrays[prefix], meta["dtypes"][prefix])
         return step, fill(tree_like)

@@ -7,29 +7,56 @@ failure injection, straggler telemetry), on the GPU by default.
       --fail-at 4
 
 ``--full`` trains the architecture at its published size in bf16 compute
-over f32 parameters and moments (on the card: flash attention's and the SSD
-scan's forward and backward kernels in every layer); without it, the
-reduced twin in f32. Weights are random, drawn from ``--seed``; the data is
-``SyntheticDataset`` (with a VLM's patch embeddings and an
-encoder-decoder's frames: whisper-tiny trains on 1500 frames a row). A
-model whose f32 parameters, gradients and two AdamW moments (16 bytes a
-parameter) exceed the card's memory is refused with the sizes (qwen3-14b,
-mixtral-8x7b, grok-1-314b, llava-next-mistral-7b: they need the
-multi-device fabric).
+(on the card: flash attention's and the SSD scan's forward and backward
+kernels in every layer); without it, the reduced twin in f32 compute.
+Parameters and AdamW moments are f32, except where the reference's dry run
+keeps them in bf16 (``TRAIN_PARAM_DTYPE`` / ``TRAIN_OPT_DTYPE``, the
+tables of ``repro.launch.dryrun``: grok-1-314b), reduced or not. Weights
+are random, drawn from ``--seed``; the data is ``SyntheticDataset`` (with
+a VLM's patch embeddings and an encoder-decoder's frames: whisper-tiny
+trains on 1500 frames a row). A model whose parameters, gradients and two
+moments exceed the card's memory (``train_bytes_per_param``) is refused
+with the sizes and the depth that would fit (qwen3-14b, mixtral-8x7b,
+grok-1-314b, llava-next-mistral-7b at their published depths; a cut depth
+trains only through ``chip_smoke.py``'s constants).
 """
 from __future__ import annotations
 
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch.configs import (ARCH_IDS, OptimizerConfig, TrainConfig,
-                                 get_config, get_reduced)
+                                 get_config, get_reduced, replace)
 from repro_torch.device import card_memory, check_fits
 from repro_torch.runtime import FailureInjector, Trainer
+from repro_torch.runtime.steps import train_grad_dtype
 
-# f32 parameters, gradients and AdamW's two moments
-TRAIN_BYTES_PER_PARAM = 16
+# the reference's training dtypes where they are not f32 (repro.launch.dryrun)
+TRAIN_PARAM_DTYPE = {"grok-1-314b": torch.bfloat16}
+TRAIN_OPT_DTYPE = {"grok-1-314b": torch.bfloat16}
+
+
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def train_bytes_per_param(param_dtype: torch.dtype, opt_dtype: torch.dtype,
+                          n_micro: int = 1) -> int:
+    """Bytes of training state a parameter: the parameter, its gradient
+    (``runtime.steps.train_grad_dtype``) and AdamW's two moments: 16 in
+    f32, 8 with bf16 parameters and moments."""
+    return (param_dtype.itemsize + train_grad_dtype(param_dtype, n_micro).itemsize
+            + 2 * opt_dtype.itemsize)
+
+
+def fitting_depth(cfg, bytes_per_param: int, capacity: int) -> int:
+    """The most layers of ``cfg`` whose training state fits ``capacity``
+    bytes (0: not even the embeddings and one layer)."""
+    one, two = (replace(cfg, num_layers=n).param_count() for n in (1, 2))
+    per_layer = two - one
+    return max(0, int((capacity / bytes_per_param - (one - per_layer)) // per_layer))
 
 
 def main(argv=None):
@@ -59,17 +86,26 @@ def main(argv=None):
     micro = args.micro or (2 if full else 4)
     lr = args.lr or (3e-4 if full else 3e-3)
     cfg = get_config(args.arch) if full else get_reduced(args.arch)
+    pdt = TRAIN_PARAM_DTYPE.get(args.arch, torch.float32)
+    odt = TRAIN_OPT_DTYPE.get(args.arch, torch.float32)
+    n_micro = max(1, batch // micro)
+    gdt = train_grad_dtype(pdt, n_micro)
+    per = train_bytes_per_param(pdt, odt, n_micro)
     print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
-          f"({'full' if full else 'reduced'}) on {args.device}")
+          f"({'full' if full else 'reduced'}) on {args.device}, "
+          f"{_name(pdt)} parameters, {_name(odt)} moments")
+    capacity = card_memory(args.device)
     try:
-        check_fits(f"training {cfg.name} (f32 parameters, gradients and AdamW "
-                   f"moments, {TRAIN_BYTES_PER_PARAM} bytes a parameter)",
-                   TRAIN_BYTES_PER_PARAM * cfg.param_count(), card_memory(args.device))
+        check_fits(f"training {cfg.name} ({_name(pdt)} parameters, {_name(gdt)} "
+                   f"gradients, {_name(odt)} AdamW moments, {per} bytes a parameter)",
+                   per * cfg.param_count(), capacity)
     except ValueError as e:
-        ap.error(f"{e}; it needs the multi-device fabric")
+        ap.error(f"{e}; {fitting_depth(cfg, per, capacity)} of its "
+                 f"{cfg.num_layers} layers would fit; it needs the multi-device fabric")
 
     tcfg = TrainConfig(
         microbatch_size=micro, dtype="bfloat16" if full else "float32",
+        param_dtype=_name(pdt),
         optimizer=OptimizerConfig(lr=lr, warmup_steps=max(2, steps // 20),
                                   total_steps=steps,
                                   weight_decay=0.1 if full else 0.01),
@@ -79,7 +115,7 @@ def main(argv=None):
     trainer = Trainer(cfg, tcfg, global_batch=batch, seq_len=seq,
                       checkpoint_dir=args.ckpt_dir,
                       workers=[f"host{i}" for i in range(4)], injector=injector,
-                      device=args.device)
+                      device=args.device, opt_dtype=odt)
     report = trainer.run(steps)
 
     k = max(1, min(5, len(report.losses) // 2))

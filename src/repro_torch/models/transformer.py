@@ -12,16 +12,21 @@ Layer parameters are stacked on a leading L axis, as the reference's
 ``init_stack`` produces them; the hybrid family's attention block is one
 block whose weights every insertion shares (autograd sums its gradient
 over the insertions). The stacks walk the L axis with a Python loop (the
-reference's ``lax.scan``); ``remat`` is not ported. The full-sequence
-stacks return (x, aux) as the reference's do: aux holds the MoE losses
-(``zero_aux``), and is empty for the other families. The decode stacks
-update the stacked decode state in place.
+reference's ``lax.scan``). With ``Impl.remat`` each layer of a
+full-sequence stack (each segment of the hybrid's) runs under
+``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its scan
+body: its activations are dropped after the forward and recomputed, through
+the same kernels, in the backward. The full-sequence stacks return (x, aux)
+as the reference's do: aux holds the MoE losses (``zero_aux``), and is
+empty for the other families. The decode stacks update the stacked decode
+state in place.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -39,10 +44,15 @@ class Impl:
     through ``kernels.ops`` (the CUDA kernel for CUDA tensors, the plain
     version on the CPU); ``"plain"`` runs the plain PyTorch version on any
     device. ``attention`` is the full-sequence (prefill) attention,
-    ``decode_attention`` the single-token one, ``ssd`` the Mamba2 scan."""
+    ``decode_attention`` the single-token one, ``ssd`` the Mamba2 scan.
+    ``remat`` recomputes each layer's (each hybrid segment's) activations
+    in the backward instead of keeping them (the reference's
+    ``Impl.remat``; off by default, as the reference's ``Trainer`` runs):
+    the forward kernels launch twice a layer under grad."""
     attention: str = "kernel"
     decode_attention: str = "kernel"
     ssd: str = "kernel"
+    remat: bool = False
 
     def __post_init__(self):
         for name in ("attention", "decode_attention", "ssd"):
@@ -216,14 +226,28 @@ def apply_block(cfg: ModelConfig, p, x, *, positions, impl: Impl,
                        use_rope=use_rope)
 
 
+def _remat(impl: Impl, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``impl.remat`` is set and autograd records: what ``fn`` saves for its
+    backward is dropped and recomputed when the backward reaches it. No RNG
+    state is stashed: no forward of the port draws random numbers."""
+    if impl.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def apply_stack(cfg: ModelConfig, stacked, x, *, positions, impl: Impl,
                 causal: bool = True, use_rope: bool = True):
     """Walk the layer stack over a whole sequence → (x, aux summed over the
     layers)."""
+    def block(p, x):
+        return apply_block(cfg, p, x, positions=positions, impl=impl,
+                           causal=causal, use_rope=use_rope)
+
     aux = zero_aux(cfg, x.device)
     for p in layers(stacked):
-        x, aux_l = apply_block(cfg, p, x, positions=positions, impl=impl,
-                               causal=causal, use_rope=use_rope)
+        x, aux_l = _remat(impl, block, p, x)
         aux = _add_aux(aux, aux_l)
     return x, aux
 
@@ -237,10 +261,14 @@ def apply_hybrid_stack(cfg: ModelConfig, mamba_stack, shared_block, x, *,
     if len(blocks) % every:
         raise ValueError(f"{cfg.name}: {len(blocks)} layers do not split into "
                          f"segments of {every}")
-    for i, p in enumerate(blocks):
-        x = _mamba_block(cfg, p, x, impl=impl)
-        if (i + 1) % every == 0:
-            x, _ = _attn_block(cfg, shared_block, x, positions=positions, impl=impl)
+
+    def segment(segment_blocks, x):
+        for p in segment_blocks:
+            x = _mamba_block(cfg, p, x, impl=impl)
+        return _attn_block(cfg, shared_block, x, positions=positions, impl=impl)[0]
+
+    for i in range(0, len(blocks), every):
+        x = _remat(impl, segment, blocks[i:i + every], x)
     return x, zero_aux(cfg, x.device)
 
 
@@ -327,9 +355,13 @@ def apply_dec_stack(cfg: ModelConfig, stacked, x, enc_out, *, positions,
     output (B, Se, D) → (x, aux (empty))."""
     B, Se = enc_out.shape[:2]
     enc_pos = torch.arange(Se, dtype=torch.int32, device=x.device)[None].expand(B, Se)
+
+    def block(p, x):
+        return apply_dec_block(cfg, p, x, enc_out, enc_pos, positions=positions,
+                               impl=impl)
+
     for p in layers(stacked):
-        x = apply_dec_block(cfg, p, x, enc_out, enc_pos, positions=positions,
-                            impl=impl)
+        x = _remat(impl, block, p, x)
     return x, {}
 
 

@@ -19,6 +19,12 @@ from repro_torch.tree import leaves, unflatten_like
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def train_grad_dtype(param_dtype: torch.dtype, n_micro: int) -> torch.dtype:
+    """The dtype a train step keeps its gradients in: one microbatch's stay
+    in the parameters' dtype, a sum of more is f32."""
+    return param_dtype if n_micro == 1 else torch.float32
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, impl: Impl = Impl()):
     """→ train_step(params, opt_state, batch) → (params, opt_state, metrics).
 
@@ -27,7 +33,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, impl: Impl = Impl()):
     into B // micro microbatches of ``tcfg.microbatch_size`` rows (B must
     split evenly, as the reference's reshape demands); the gradients of
     each microbatch's loss (compute in ``tcfg.dtype``) are summed in f32
-    and divided by their count, and one ``adamw_update`` follows. The
+    and divided by their count, and one ``adamw_update`` follows. With one
+    microbatch a step the gradients stay in the parameters' dtype
+    (``train_grad_dtype``) and the update widens them to f32 piece by
+    piece: the reference's f32 sum of one term divided by 1 is that exact
+    widening, and a full f32 copy of bf16 gradients would not fit beside
+    grok-1-314b's layer. The
     parameters require grad for the step only (each leaf's flag is put
     back as the step found it, so serving a trained state builds no
     graph) and are updated in place; metrics are {"loss" (mean over
@@ -58,7 +69,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, impl: Impl = Impl()):
                     grads = torch.autograd.grad(loss, flat,
                                                 materialize_grads=True)
                 if gsum is None:
-                    gsum = [g.float() for g in grads]
+                    gsum = [g.to(train_grad_dtype(p.dtype, n_micro))
+                            for p, g in zip(flat, grads)]
                 else:
                     for a, g in zip(gsum, grads):
                         a.add_(g.float())
@@ -68,9 +80,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, impl: Impl = Impl()):
             for p, r in zip(flat, found):
                 p.requires_grad_(r)
         with record_function("train_step.optimizer"):
-            grads = unflatten_like(params, [g.div_(n_micro) for g in gsum])
-            params, opt_state, om = adamw_update(params, grads, opt_state,
-                                                 tcfg.optimizer)
+            if n_micro > 1:
+                gsum = [g.div_(n_micro) for g in gsum]
+            params, opt_state, om = adamw_update(
+                params, unflatten_like(params, gsum), opt_state, tcfg.optimizer)
         return params, opt_state, {"loss": loss_sum / n_micro, **om}
 
     return train_step

@@ -40,14 +40,20 @@ class TrainReport:
 
 
 class Trainer:
+    """The reference's ``Trainer`` on one device. Parameters are drawn in
+    ``tcfg.param_dtype`` and AdamW's moments are kept in ``opt_dtype``
+    (f32 by default; grok-1-314b's launcher passes bf16, as the
+    reference's dry run keeps its training state)."""
+
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, *,
                  global_batch: int, seq_len: int,
                  checkpoint_dir: Optional[str] = None,
                  impl: Impl = Impl(),
                  workers: Optional[List[str]] = None,
                  injector: Optional[FailureInjector] = None,
-                 device="cuda"):
+                 device="cuda", opt_dtype: torch.dtype = torch.float32):
         self.cfg, self.tcfg = cfg, tcfg
+        self.opt_dtype = opt_dtype
         self.global_batch, self.seq_len = global_batch, seq_len
         self.impl = impl
         self.device = resolve(device)
@@ -63,7 +69,7 @@ class Trainer:
     def init_state(self, seed: int = 0):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = init_params(self.cfg, gen, dtype=DTYPES[self.tcfg.param_dtype])
-        return {"params": params, "opt": init_opt_state(params)}
+        return {"params": params, "opt": init_opt_state(params, self.opt_dtype)}
 
     def _fn(self):
         if self._step_fn is None:
@@ -82,7 +88,7 @@ class Trainer:
         if self.ckpt and self.ckpt.latest_step() is not None:
             start, host = self.ckpt.restore(
                 {"params": state["params"], "opt": state["opt"]})
-            state = map_tree(lambda a: torch.from_numpy(a).to(self.device), host)
+            state = map_tree(lambda a: torch.as_tensor(a, device=self.device), host)
         return start, state
 
     # -- main loop ------------------------------------------------------------

@@ -206,9 +206,15 @@ def test_save_snapshots_before_in_place_updates():
 
 
 def test_bf16_leaf_raises():
+    """A bfloat16 leaf no longer raises: it is written as its 16-bit
+    patterns (npz ``|V2``, "bfloat16" in the manifest, as the reference
+    writes it) and restored as a bfloat16 tensor with the same bits."""
+    w = torch.randn(3, 5).to(torch.bfloat16)
     with tempfile.TemporaryDirectory() as d:
-        with pytest.raises(ValueError, match="bfloat16"):
-            Checkpointer(d).save(1, {"w": torch.ones(2, dtype=torch.bfloat16)})
+        Checkpointer(d).save(1, {"w": w}, blocking=True)
+        _, got = Checkpointer(d).restore({"w": w})
+    assert got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"].view(torch.int16), w.view(torch.int16))
 
 
 def test_zstd_manifest_raises_clearly():

@@ -476,12 +476,12 @@ def test_launchers_refuse_what_does_not_fit(case):
     parameter (f32 parameters, gradients, two AdamW moments), serving 2
     (bf16 weights); past the card's memory they refuse, saying why."""
     from repro_torch.device import check_fits
-    from repro_torch.launch.train import TRAIN_BYTES_PER_PARAM
+    from repro_torch.launch.train import train_bytes_per_param
     arch, n_layers, what, refused = FIT_CASES[case]
     cfg = get_config(arch)
     if n_layers:
         cfg = replace(cfg, num_layers=n_layers)
-    per = TRAIN_BYTES_PER_PARAM if what == "train" else 2
+    per = train_bytes_per_param(torch.float32, torch.float32) if what == "train" else 2
     need = per * cfg.param_count()
     if refused:
         with pytest.raises(ValueError, match="more than the card's 80.0 GB"):

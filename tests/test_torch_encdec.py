@@ -426,9 +426,10 @@ def test_dec_stack_is_the_reference_tree(whisper):
 
 def test_full_whisper_fits_training_on_a_card():
     from repro_torch.device import check_fits
-    from repro_torch.launch.train import TRAIN_BYTES_PER_PARAM
+    from repro_torch.launch.train import train_bytes_per_param
     cfg = get_config(ARCH)
-    check_fits(ARCH, TRAIN_BYTES_PER_PARAM * cfg.param_count(), 80_000_000_000)
+    per = train_bytes_per_param(torch.float32, torch.float32)
+    check_fits(ARCH, per * cfg.param_count(), 80_000_000_000)
     assert 50e6 < cfg.param_count() < 60e6
 
 

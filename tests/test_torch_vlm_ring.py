@@ -446,13 +446,14 @@ def test_full_llava_sizes_and_the_train_refusal():
     116 GB of f32 training state do not; a ring of 32 x 8 x 4096 slots is
     4.3 GB where a dense cache of 32768 positions would be 34.4 GB."""
     from repro_torch.device import check_fits
-    from repro_torch.launch.train import TRAIN_BYTES_PER_PARAM
+    from repro_torch.launch.train import train_bytes_per_param
     cfg = get_config(ARCH)
     n = cfg.param_count()
     assert 7.2e9 < n < 7.3e9
     check_fits(ARCH, 2 * n, 80_000_000_000)
     with pytest.raises(ValueError, match="more than the card's 80.0 GB"):
-        check_fits(ARCH, TRAIN_BYTES_PER_PARAM * n, 80_000_000_000)
+        check_fits(ARCH, train_bytes_per_param(torch.float32, torch.float32) * n,
+                   80_000_000_000)
     kv = 2 * cfg.num_layers * 8 * cfg.kv_heads_eff * cfg.head_dim * 2
     assert round(kv * cfg.swa_window / 1e9, 1) == 4.3
     assert round(kv * 32768 / 1e9, 1) == 34.4
