@@ -54,6 +54,14 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              launches of ``mac_batch``, ``flash_attention`` and
              ``flash_attention_bwd`` in the ranks (each exact); which gloo
              collectives take CUDA tensors; the rank starts and the wall.
+   sharding — in the fabric's world: a full-width llama3.2-1b checkpoint
+             (bf16, written by the port's ``Checkpointer``) placed by
+             ``runtime.elastic.elastic_restore`` on a (2, 2) ("data",
+             "model") mesh under ``fsdp_tp``, then on ``remesh(2, tp=2)``'s
+             (1, 2) mesh (ranks 2 and 3 hold no shard): every rank's local
+             shard equal, bit for bit, to the slice of the checkpoint's npz
+             entry read apart from the restore, its shape ``local_shape``,
+             its placements ``placements``; restore seconds, local bytes.
    ipc     — ``launch.ipc_wordcount`` on the card: the paper's word count
              through the port's six transports at 1e2 to 1e7 words (3
              reps, median) and uds, mpklink and mpklink_opt at 1e8 (1 rep):
@@ -88,6 +96,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              4 x 2048 (2 flash a call, its ``moe_drop_frac``), and
              whisper-tiny over 8 x 1500 frames and 8 x 448 tokens (12
              flash a call: 4 encoder, 4 self, 4 cross).
+             Each prefill line carries the dry run of its own call
+             (``launch.dryrun.count_step`` on the meta device, the kernels
+             by their ``cost``): ``dry_state_bytes``, ``dry_flops``,
+             ``dry_bound_ms`` (``roofline``: the larger of the compute and
+             the memory term, and the memory term's bytes are an upper
+             bound, every op's operands and results, so it is no floor),
+             ``mfu`` (``model_flops`` over the measured ms at 989
+             TFLOP/s), ``roofline_share`` (``dry_bound_ms`` over the
+             measured ms) and ``compute_share`` (the compute term over
+             the measured ms); its kernel launches a call times the calls
+             must equal the measured launches.
              Then smollm-360m in the JAX package's padded 32/8 head layout
              (its weights embedded with zero pad rows) against the unpadded
              model in f32 at full depth: identical argmax, max abs
@@ -178,12 +197,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              and llava-next-mistral-7b (12 of 32, f32, 46.1 GB, 2880 patch
              embeddings a row) at 2 x 6144 in microbatches of 1 (the
              window binds), with remat; grok-1-314b (1 of 64) with bf16
-             parameters and moments (``launch.train.TRAIN_PARAM_DTYPE`` /
+             parameters and moments (``launch.dryrun.TRAIN_PARAM_DTYPE`` /
              ``TRAIN_OPT_DTYPE``, 52.2 GB) at 2 x 2048 in one microbatch,
              with remat. Each line prints the dtypes, remat and the bytes
              of state; under remat the forward kernels launch twice a
              block and microbatch (the recompute), the backward once; the
-             peak must stay under 80 GB. Then remat itself: llama3.2-1b
+             peak must stay under 80 GB. Every train line carries the dry
+             run of its own step as the prefill lines do, plus
+             ``dry_act_bytes`` (one microbatch's saved activations) and
+             ``dry_state_plus_act_gb`` beside the measured peak;
+             ``dry_state_bytes`` must equal ``state_bytes``, and each cut
+             depth must be at most the dry run's ``dry_fits_depth`` of
+             the published model on this card. Then remat itself: llama3.2-1b
              one step of 8 x 2048 each way from the same state (losses,
              peaks, launches) and the first microbatch's gradients each
              way (equal bit for bit; the remat peak must be lower), the
@@ -261,8 +286,11 @@ import time
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}   # dense tensor-core bf16; f32 non-tensor
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+# the H100 SXM's peaks and the least time of a piece of work: one set, the
+# port's roofline's (a checkout without src/ fails here, printing nothing)
+from repro_torch.roofline import HBM_BW, PEAK_FLOPS, bound  # noqa: E402
+
 SEED = 0x5EED1234
 SRC = "src/repro_torch/kernels/csrc"
 # zamba2-2.7b's training microbatch: the largest that fits the card's 80 GB
@@ -272,7 +300,8 @@ ZAMBA_MICRO = 1
 # weights (all 32: 93 GB, more than the card's 80)
 MIXTRAL_LAYERS = 16
 # training depths on one card (bytes of state: parameters, gradients and
-# two AdamW moments, launch.train.train_bytes_per_param times param_count):
+# two AdamW moments, launch.train.train_bytes_per_param times param_count;
+# each at most launch.dryrun.fits_depth, which phase_train checks):
 # qwen3-14b 4 of 40 layers, f32, 46.0 GB (all 40: 236 GB)
 QWEN3_TRAIN_LAYERS = 4
 # mixtral-8x7b 2 of 32, f32, 50.6 GB (3 would be 73.9 GB before activations)
@@ -409,14 +438,6 @@ def short_names(times, names):
                 out[name] = out.get(name, 0.0) + ms
                 break
     return out
-
-
-def bound(nbytes, ops, kind):
-    """Least time (ms) for the work: the larger of bytes over the memory
-    rate and operations over the peak rate for their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -1138,6 +1159,7 @@ def phase_prefill(cfg, n_calls=3, B=4, S=2048):
         extra["vision_tokens"] = cfg.vision_tokens
     if cfg.enc_dec:
         extra.update(enc_layers=cfg.enc_layers, frames=cfg.enc_ctx)
+    extra.update(dry_run(cfg, "prefill", B, S, ms, launches, n_calls, impl=Impl()))
     emit(phase="prefill", arch=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, dtype="bfloat16", batch=B, prompt_len=S,
          window=cfg.swa_window, calls=n_calls, ms_per_prefill=ms,
@@ -2553,8 +2575,105 @@ def _fabric_compression(rank, world, mesh):
     return rec
 
 
-def fabric_rank(rank, world, t_start):
-    """One rank of the fabric phase (a process of its own on the card)."""
+SHARDING_ARCH = "llama3.2-1b"
+
+
+def write_sharding_checkpoint():
+    """A full-width llama3.2-1b checkpoint (bf16 parameters, random from a
+    seeded generator on the card) in a fresh temporary directory, written
+    by the port's ``Checkpointer`` → (directory, seconds)."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    params = init_params(get_config(SHARDING_ARCH),
+                         torch.Generator(device="cuda").manual_seed(SEED + 7),
+                         dtype=torch.bfloat16)
+    path = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    Checkpointer(path).save(3, params, blocking=True)
+    del params
+    torch.cuda.empty_cache()
+    return path, time.perf_counter() - t0
+
+
+def _spec_slice(spec, at, sizes, shape):
+    """The index of the shard at mesh coordinate ``at`` under ``spec``,
+    each split dim in equal parts, its first axis major (written here
+    apart from ``sharding.local_slice``, which it checks)."""
+    index = []
+    for d, n in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        axes = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+        parts, i = 1, 0
+        for ax in axes:
+            parts, i = parts * sizes[ax], i * sizes[ax] + at[ax]
+        index.append(slice(i * (n // parts), (i + 1) * (n // parts)))
+    return tuple(index)
+
+
+def _sharding_case(rank, world, ckpt_dir):
+    """This rank's part of the sharding line: the checkpoint restored by
+    ``elastic_restore`` onto a (2, 2) ("data", "model") mesh under fsdp_tp,
+    then onto ``remesh(2, tp=2)``'s (1, 2) mesh (ranks 2 and 3 take part in
+    building it and hold no shard). Every local shard against the slice of
+    the checkpoint's npz entry read apart from the restore: bits, shape
+    (``local_shape``), placements and device."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.device import MetaGenerator
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_params
+    from repro_torch.runtime.elastic import elastic_restore, remesh
+    from repro_torch.sharding import local_shape, mesh_sizes, param_specs, placements
+    from repro_torch.tree import leaves_with_paths
+    cfg = get_config(SHARDING_ARCH)
+    like = init_params(cfg, MetaGenerator(), dtype=torch.bfloat16)
+    paths = sorted(p for p, _ in leaves_with_paths(like))
+    out = {}
+    for name, make in (("mesh_2x2", lambda: make_test_mesh((2, 2), ("data", "model"))),
+                       ("remesh_1x2", lambda: remesh(2, tp=2))):
+        mesh = make()
+        coord = mesh.get_coordinate()
+        if coord is None:
+            out[name] = None
+            dist.barrier()
+            continue
+        spec_tree = param_specs(cfg, like, policy="fsdp_tp", mesh=mesh)
+        specs = dict(leaves_with_paths(spec_tree))
+        t0 = time.perf_counter()
+        step, placed = elastic_restore(Checkpointer(ckpt_dir), like, mesh, spec_tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        placed = dict(leaves_with_paths(placed))
+        at, sizes = dict(zip(mesh.mesh_dim_names, coord)), mesh_sizes(mesh)
+        wrong, local_bytes = [], 0
+        with np.load(os.path.join(ckpt_dir, f"step_{step}", "arrays.npz")) as z:
+            for i, path in enumerate(paths):
+                t, spec = placed[path], specs[path]
+                local = t.to_local()
+                full = z[f"{i:06d}"].view(np.int16)
+                want = full[_spec_slice(spec, at, sizes, full.shape)]
+                ok = (local.is_cuda and local.dtype == torch.bfloat16
+                      and tuple(local.shape) == local_shape(t.shape, spec, sizes)
+                      and list(t.placements) == placements(spec, mesh)
+                      and np.array_equal(local.view(torch.int16).cpu().numpy(), want))
+                if not ok:
+                    wrong.append(path)
+                local_bytes += local.numel() * 2
+        out[name] = dict(coord=list(coord), step=step, leaves=len(paths), wrong=wrong,
+                         local_bytes=local_bytes, restore_s=restore_s)
+        del placed
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def fabric_rank(rank, world, t_start, ckpt_dir):
+    """One rank of the fabric phase (a process of its own on the card),
+    then its part of the sharding line (``_sharding_case``)."""
     from repro_torch.core.fabric import MPKLinkFabric
     from repro_torch.launch.mesh import make_test_mesh
     started = time.time() - t_start
@@ -2574,20 +2693,31 @@ def fabric_rank(rank, world, t_start):
     cases["pipeline"] = _fabric_pipeline(rank, world, mesh)
     torch.cuda.empty_cache()
     cases["compressed_tree_reduce"] = _fabric_compression(rank, world, mesh)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
     return {"started_s": started, "gloo_cuda": gloo_cuda, "cases": cases,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_mem_gb": peak, "sharding": _sharding_case(rank, world, ckpt_dir)}
 
 
 def phase_fabric(smi):
     """The device fabric on the one card: four ranks (processes from the
     forkserver, each on ``cuda:0``) over gloo, every exchange staged
     through pinned host buffers; every case held against the same
-    computation in one rank. → the kernel launches of the cases."""
+    computation in one rank. Then, in the same world, the sharding line:
+    a full-width llama3.2-1b checkpoint placed by ``elastic_restore`` on a
+    (2, 2) mesh under fsdp_tp and on the (1, 2) remesh, every rank's shard
+    equal to the checkpoint's slice bit for bit. → the kernel launches of
+    the fabric cases."""
+    import shutil
     from repro_torch.launch.world import run_world
     torch.cuda.empty_cache()
+    ckpt_dir, ckpt_s = write_sharding_checkpoint()
     t0 = time.perf_counter()
-    ranks = run_world(fabric_rank, FABRIC_WORLD, time.time(), device="cuda",
-                      timeout=600)
+    try:
+        ranks = run_world(fabric_rank, FABRIC_WORLD, time.time(), ckpt_dir,
+                          device="cuda", timeout=600)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     wall = time.perf_counter() - t0
     cases = {}
     for name in ranks[0]["cases"]:
@@ -2609,6 +2739,23 @@ def phase_fabric(smi):
          rank_start_s=max(r["started_s"] for r in ranks),
          peak_mem_gb_a_rank=max(r["peak_mem_gb"] for r in ranks),
          cases=cases, launches=launches, wall_s=wall)
+    meshes = {}
+    for name in ("mesh_2x2", "remesh_1x2"):
+        per = [r["sharding"][name] for r in ranks]
+        holders = [rank for rank, p in enumerate(per) if p is not None]
+        check(holders == ([0, 1, 2, 3] if name == "mesh_2x2" else [0, 1]),
+              f"sharding {name}: ranks {holders} hold shards")
+        for rank in holders:
+            check(not per[rank]["wrong"] and per[rank]["step"] == 3,
+                  f"sharding {name}: rank {rank}'s shards of {per[rank]['wrong']} "
+                  f"differ from the checkpoint")
+        meshes[name] = dict(coords=[per[r]["coord"] for r in holders],
+                            leaves=per[holders[0]]["leaves"],
+                            local_bytes=[per[r]["local_bytes"] for r in holders],
+                            restore_s=max(per[r]["restore_s"] for r in holders))
+    emit(phase="sharding", card=smi, arch=SHARDING_ARCH, dtype="bfloat16",
+         policy="fsdp_tp", world=FABRIC_WORLD, backend="gloo", checkpoint_s=ckpt_s,
+         meshes=meshes, bit_identical=True)
     return launches
 
 
@@ -2665,6 +2812,39 @@ def phase_ipc(smi):
 def state_bytes(tree):
     from repro_torch.tree import leaves
     return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def dry_run(cfg, kind, B, S, ms, launches, calls, **kw):
+    """The dry run's numbers for a train or prefill line (``launch.dryrun``:
+    the same step on the meta device, one card, its kernels counted by their
+    ``cost``) beside the line's measured ``ms``: bytes of state and of one
+    microbatch's saved activations, FLOPs, the roofline bound, the MFU
+    (``model_flops`` over ms at the bf16 peak), and the bound's and the
+    compute term's shares of the measured time. The memory term counts
+    every op's operands and results, an upper bound on the bytes moved, so
+    ``dry_bound_ms`` is no floor when memory bounds it
+    (``dry_bytes_upper_bound``); ``compute_share`` reads the FLOPs alone.
+    Each kernel's launches in one dry step times ``calls`` must equal the
+    measured ``launches``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import model_flops
+    t0 = time.perf_counter()
+    r = dryrun.count_step(cfg, kind, B, S, dtype=torch.bfloat16, **kw)
+    roof = r["cost"].roofline()
+    dry = {k: v["launches"] for k, v in r["cost"].kernels.items()}
+    for name, n in dry.items():
+        check(n * calls == launches[name],
+              f"{cfg.name} {kind} dry run: {n} {name} launches a step, measured "
+              f"{launches[name]} in {calls}")
+    mfl = model_flops(cfg.active_param_count(), B * S, kind)
+    return dict(dry_state_bytes=r["state_bytes"], dry_act_bytes=r["act_bytes"],
+                dry_flops=roof.flops, dry_bytes=roof.hbm_bytes,
+                dry_bytes_upper_bound=True, dry_bound_ms=roof.t_bound * 1e3,
+                dry_bound_by=roof.bottleneck, dry_compute_ms=roof.t_compute * 1e3,
+                model_flops=mfl, mfu=mfl / (ms / 1e3 * PEAK_FLOPS["bf16"]),
+                roofline_share=roof.t_bound / (ms / 1e3),
+                compute_share=roof.t_compute / (ms / 1e3), dry_launches=dry,
+                dry_s=time.perf_counter() - t0)
 
 
 def phase_decode(cfg, B=8, max_seq=448, ticks=64, warm=2):
@@ -2752,7 +2932,7 @@ def phase_decode(cfg, B=8, max_seq=448, ticks=64, warm=2):
     emit(phase="decode", arch=cfg.name, layers=L, d_model=cfg.d_model, dtype="bfloat16",
          batch=B, max_seq=max_seq, ticks=ticks, ring=ring, ms_per_tick=ms,
          tokens_per_s=B * ticks / wall,
-         floor_ms=(weight_bytes + valid) / HBM_BYTES_PER_S * 1e3,
+         floor_ms=(weight_bytes + valid) / HBM_BW * 1e3,
          weight_bytes=weight_bytes, state_bytes=state_bytes(caches), launches=launches,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
     del params, state, caches, kw
@@ -2817,7 +2997,7 @@ def phase_ring_parity(cfg, B=2, extra=256):
 
 def phase_train(cfg, steps=6, batch=8, seq=2048, micro=2,
                 param_dtype=torch.float32, opt_dtype=torch.float32, remat=False,
-                beside=None):
+                beside=None, published=None):
     """The port's ``Trainer`` at full width (the depth the caller gives):
     ``param_dtype`` parameters, ``opt_dtype`` AdamW moments, bf16 compute,
     a global batch of ``batch`` x ``seq`` in microbatches of ``micro``,
@@ -2826,8 +3006,12 @@ def phase_train(cfg, steps=6, batch=8, seq=2048, micro=2,
     counts are zeroed just before and read just after; every attention and
     mamba block of every microbatch must run its kernel's backward once and
     its forward once, twice under remat (the recompute). ``beside``: fields
-    of an earlier line of this run to print beside this one. → (the launch
-    counts, the peak memory in GB)."""
+    of an earlier line of this run to print beside this one. The dry run's
+    numbers for the same step join the line (``dry_run``); its bytes of
+    state must equal the line's. A model cut in depth gives its
+    ``published`` config: the cut must be at most the dry run's
+    ``fits_depth`` of that config on this card. → (the launch counts, the
+    peak memory in GB)."""
     from repro_torch.configs import OptimizerConfig, TrainConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train_bytes_per_param
@@ -2872,16 +3056,32 @@ def phase_train(cfg, steps=6, batch=8, seq=2048, micro=2,
     ms = (t2 - t1) / (steps - 1) * 1e3
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(peak < 80, f"{cfg.name} train: peak {peak} GB")
+    n_state = n_params * train_bytes_per_param(param_dtype, opt_dtype, batch // micro)
+    kw = dict(micro=micro, param_dtype=param_dtype, opt_dtype=opt_dtype,
+              impl=Impl(remat=remat))
+    dry = dry_run(cfg, "train", batch, seq, ms, launches, steps, **kw)
+    check(dry["dry_state_bytes"] == n_state,
+          f"{cfg.name} train: dry run {dry['dry_state_bytes']} bytes of state, "
+          f"the card's {n_state}")
+    dry["dry_state_plus_act_gb"] = (dry["dry_state_bytes"] + dry["dry_act_bytes"]) / 1e9
+    if published is not None:
+        from repro_torch.launch import dryrun
+        capacity, card = dryrun.card_capacity()
+        plan = dryrun.fits_depth(published, "train", batch, seq, capacity,
+                                 dtype=torch.bfloat16, **kw)
+        check(cfg.num_layers <= plan["fits_depth"],
+              f"{cfg.name} train: {cfg.num_layers} layers, more than the dry run's "
+              f"fits_depth {plan['fits_depth']} on {card}")
+        dry.update(dry_fits_depth=plan["fits_depth"], published_layers=published.num_layers,
+                   dry_need_bytes_published=plan["need_bytes"], capacity_bytes=capacity)
     emit(phase="train", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          params=n_params, param_dtype=tcfg.param_dtype,
          moment_dtype=str(opt_dtype).removeprefix("torch."), compute_dtype="bfloat16",
-         remat=remat,
-         state_bytes=n_params * train_bytes_per_param(param_dtype, opt_dtype,
-                                                      batch // micro),
+         remat=remat, state_bytes=n_state,
          global_batch=batch, seq_len=seq, microbatch=micro, steps=steps, lr=3e-4,
          warmup_steps=2, vision_tokens=cfg.vision_tokens or None, losses=losses,
          first_step_s=t1 - t0, ms_per_step=ms, tokens_per_s=batch * seq / ms * 1e3,
-         peak_mem_gb=peak, launches=launches, **(beside or {}))
+         peak_mem_gb=peak, launches=launches, **dry, **(beside or {}))
     # the trained state serves without a graph: the step put requires_grad back
     check(not any(p.requires_grad for p in leaves(state["params"])),
           "train: the step left the parameters requiring grad")
@@ -3189,10 +3389,10 @@ def kernels_line(cfg, launches, err, attn_inputs):
     # guard_copy: a request / response payload is one 512-byte row
     one = guard_times(1, 20)
     big = guard_times((64 << 20) // 512, 4)
-    bb, bby = bound(big.pop("nbytes"), big.pop("ops"), "fp32")
+    bb, bby = bound(big.pop("nbytes"), big.pop("ops"), "f32")
     row("guard_copy", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:93",
         "(1, 128) uint32", one["ms"], one["plain_ms"], one["nbytes"], one["ops"],
-        "fp32", one["library_ms"], earlier_ms=one["earlier_ms"], graph_ms=one["graph_ms"],
+        "f32", one["library_ms"], earlier_ms=one["earlier_ms"], graph_ms=one["graph_ms"],
         earlier_graph_ms=one["earlier_graph_ms"], kernels_per_call=one["kernels_per_call"],
         earlier_kernels_per_call=one["earlier_kernels_per_call"],
         at_64MiB=dict(big, bound_ms=bb, bound_by=bby))
@@ -3204,7 +3404,7 @@ def kernels_line(cfg, launches, err, attn_inputs):
         first input's result against the plain version."""
         check(_same(kernel(*inputs[0]), plain(*inputs[0])),
               f"{kernel.__name__} at 32 MiB differs from plain")
-        b, by = bound(nbytes, ops, "fp32")
+        b, by = bound(nbytes, ops, "f32")
         turn = [lambda x=x: kernel(*x) for x in inputs] * 2
         earlier_turn = [lambda x=x: earlier(*x) for x in inputs] * 2
         return dict(ms=cold_ms(kernel, inputs, 20), earlier_ms=cold_ms(earlier, inputs, 20),
@@ -3219,7 +3419,7 @@ def kernels_line(cfg, launches, err, attn_inputs):
     row("mac_batch", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:153",
         "(8, 1, 128) uint32", cuda_ms(lambda: mg.mac_batch_cuda(st, tag), 200),
         cuda_ms(lambda: mg.mac_batch_plain(st, tag), 20), 8 * 512 + 32,
-        2 * 8 * 128, "fp32", None,
+        2 * 8 * 128, "f32", None,
         **launch_times("mac_batch", lambda: mg.mac_batch_cuda(st, tag),
                        lambda: mg._mac_batch_two_pass(st, tag)),
         at_32MiB=dict(shape="4 distinct (64, 1024, 128) uint32 stacks in turn, cold in L2",
@@ -3234,13 +3434,13 @@ def kernels_line(cfg, launches, err, attn_inputs):
     row("mac_init_state", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:203",
         "(128,) uint32", cuda_ms(lambda: mg.mac_init_state_cuda(tag, "cuda"), 200),
         cuda_ms(lambda: mg.mac_init_state_plain(tag, "cuda"), 50), 512, 128,
-        "fp32", cuda_ms(lambda: torch.full((128,), 7, dtype=torch.int32,
+        "f32", cuda_ms(lambda: torch.full((128,), 7, dtype=torch.int32,
                                            device="cuda"), 200))
     blocks = [(h, _u32(65536, gen)) for _ in range(4)]
     row("mac_update", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:241",
         "(1, 128) uint32 block", cuda_ms(lambda: mg.mac_update_cuda(h, blk), 200),
         cuda_ms(lambda: mg.mac_update_plain(h, blk), 50), 3 * 512, 2 * 128,
-        "fp32", None,
+        "f32", None,
         **launch_times("mac_update", lambda: mg.mac_update_cuda(h, blk),
                        lambda: mg._mac_update_two_pass(h, blk)),
         at_65536_rows=dict(shape="4 distinct (65536, 128) uint32 blocks in turn, cold in L2",
@@ -3250,7 +3450,7 @@ def kernels_line(cfg, launches, err, attn_inputs):
     del blocks
     row("mac_finalize", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:271",
         "(128,) uint32", cuda_ms(lambda: mg.mac_finalize_cuda(h), 200),
-        cuda_ms(lambda: mg.mac_finalize_plain(h), 50), 516, 2 * 128, "fp32", None)
+        cuda_ms(lambda: mg.mac_finalize_plain(h), 50), 516, 2 * 128, "f32", None)
 
     # decode attention on the serving run's layer-0 cache and positions
     k, v, pos = attn_inputs
@@ -3260,8 +3460,7 @@ def kernels_line(cfg, launches, err, attn_inputs):
     qp = pos.to(torch.int32)[:, None]
     kp = kvcache.dense_cache_positions_rows({"k": k}, pos + 1)
     valid = int((kp >= 0).sum())
-    nbytes = 2 * valid * Hkv * Dh * k.element_size() + 2 * q.numel() * 2 \
-        + kp.numel() * 4 + B * 4
+    cost = da.cost(q, k, kp, rows=valid)
     serve_err = (da.decode_attention_cuda(q, k, v, qp, kp).float()
                  - da.decode_attention_plain(q, k, v, qp, kp).float()).abs().max().item()
     check(serve_err <= 2e-2, f"decode_attention on the serving cache: {serve_err}")
@@ -3274,7 +3473,7 @@ def kernels_line(cfg, launches, err, attn_inputs):
         f"{valid} valid rows", cuda_ms(lambda: da.decode_attention_cuda(
             q, k, v, qp, kp), 200),
         cuda_ms(lambda: da.decode_attention_plain(q, k, v, qp, kp), 50),
-        nbytes, 4 * H * Dh * valid, "bf16", sdpa_ms([(q, k, v, kp)], 200),
+        cost["bytes"], cost["flops"], "bf16", sdpa_ms([(q, k, v, kp)], 200),
         valid_rows=valid,
         earlier_ms=cuda_ms(lambda: da._decode_attention_split_merge(q, k, v, qp, kp), 200),
         graph_ms=graph_ms([lambda: da.decode_attention_cuda(q, k, v, qp, kp)] * 16),
@@ -3354,8 +3553,8 @@ def decode_at(gen, B, S, H, Hkv, Dh, layers, causal=True, window=None, ring=Fals
                for k, v in caches]
     per_pass = max(1, 32 // layers)      # 2 passes over 16 layers, 1 over 40, or 32 calls
     calls, earlier = calls * per_pass, earlier * per_pass
-    b_ms, by = bound(2 * B * S * Hkv * Dh * 2 + 2 * q.numel() * 2 + kp.numel() * 4 + B * 4,
-                     4 * H * Dh * B * S, "bf16")
+    cost = da.cost(q, k0, kp)
+    b_ms, by = bound(cost["bytes"], cost["flops"], "bf16")
     what = ("causal" if causal else "non-causal") + (f", window {window}" if window else "") \
         + (", ring positions" if ring else "")
     out = dict(shape=f"q ({B}, 1, {H}, {Dh}) bf16 over {layers} x ({B}, {S}, {Hkv}, {Dh})"
@@ -3411,7 +3610,7 @@ def flash_row(gen, launches, err):
     B, S, H, Hkv, Dh = 4, 2048, 32, 8, 64
     q, k, v, qp, kp = flash_inputs(gen, B, S, S, H, Hkv, Dh, torch.bfloat16, tail=0)
     pairs = int(((kp[:, None, :] <= qp[:, :, None]) & (kp[:, None, :] >= 0)).sum())
-    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + (qp.numel() + kp.numel()) * 4
+    cost = fa.cost(q, k, pairs=pairs)
     qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, is_causal=True, enable_gqa=True), 20)
@@ -3423,7 +3622,7 @@ def flash_row(gen, launches, err):
                 f"causal", cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, qp, kp),
                                    20),
                 cuda_ms(lambda: fa.flash_attention_plain(q, k, v, qp, kp), 2),
-                nbytes, 4 * Dh * H * pairs, "bf16", lib, valid_pairs=pairs,
+                cost["bytes"], cost["flops"], "bf16", lib, valid_pairs=pairs,
                 earlier_ms=cuda_ms(lambda: fa._flash_attention_cuda_cores(
                     q, k, v, qp, kp), 5),
                 kernels_per_call=kpc,
@@ -3464,8 +3663,8 @@ def flash_at(gen, B, S, H, Hkv, Dh, window=None, Sq=None, causal=True):
          - fa.flash_attention_plain(q, k, v, qp, kp, **args).float()).abs().max().item()
     check(e <= 2e-2, f"flash_attention at ({B}, {Sq} over {S}, {H}/{Hkv}, {Dh}), "
           f"causal {causal}, window {window}: max err {e}")
-    b_ms, by = bound(2 * (q.numel() + k.numel()) * 2 + (qp.numel() + kp.numel()) * 4,
-                     4 * Dh * H * pairs, "bf16")
+    cost = fa.cost(q, k, pairs=pairs)
+    b_ms, by = bound(cost["bytes"], cost["flops"], "bf16")
     qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     mask = ok[:, None] if window is not None else None
 
@@ -3506,8 +3705,7 @@ def flash_bwd_case(gen, B, S, H, Hkv, Dh, Sq=None, causal=True, window=None):
     if window is not None:
         ok &= (qp[:, :, None] - kp[:, None, :]) < window
     pairs = int(ok.sum())
-    nbytes = (2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-              + 4 * (qp.numel() + kp.numel()))
+    cost = fa.cost_bwd(q, k, pairs=pairs)
     qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
     mask = ok[:, None] if window is not None else None
     ref = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
@@ -3516,7 +3714,7 @@ def flash_bwd_case(gen, B, S, H, Hkv, Dh, Sq=None, causal=True, window=None):
     douts = dout.transpose(1, 2)
     lib = cuda_ms(lambda: torch.autograd.grad(ref, (qs, ks, vs), douts, retain_graph=True),
                   20)
-    return args, pairs, nbytes, lib
+    return args, pairs, cost, lib
 
 
 def flash_bwd_row(gen, launches, err):
@@ -3532,7 +3730,7 @@ def flash_bwd_row(gen, launches, err):
     zamba2-2.7b's attention (1, 2048, 32, 80), MHA."""
     from repro_torch.kernels import flash_attention as fa
     B, S, H, Hkv, Dh = 2, 2048, 32, 8, 64
-    args, pairs, nbytes, lib = flash_bwd_case(gen, B, S, H, Hkv, Dh)
+    args, pairs, cost, lib = flash_bwd_case(gen, B, S, H, Hkv, Dh)
     kpc = kernels_per_call(lambda: fa.flash_attention_bwd_cuda(*args))
     check(kpc == 3, f"flash_attention_bwd: {kpc} kernels per call, want 3 "
           f"(delta, dK/dV, dQ)")
@@ -3542,7 +3740,7 @@ def flash_bwd_row(gen, launches, err):
                f"q ({B}, {S}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
                f"causal, dO, lse", cuda_ms(lambda: fa.flash_attention_bwd_cuda(*args), 20),
                cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), 2),
-               nbytes, 10 * Dh * H * pairs, "bf16", lib, valid_pairs=pairs,
+               cost["bytes"], cost["flops"], "bf16", lib, valid_pairs=pairs,
                earlier_ms=cuda_ms(lambda: fa._flash_attention_bwd_mma_sync(*args), 10),
                pass_ms=short_names(kernel_ms(lambda: fa.flash_attention_bwd_cuda(*args)),
                                    FLASH_BWD_KERNELS),
@@ -3572,7 +3770,7 @@ def flash_bwd_at(gen, B, S, H, Hkv, Dh, Sq=None, causal=True, window=None):
     version."""
     from repro_torch.kernels import flash_attention as fa
     Sq = Sq or S
-    args, pairs, nbytes, lib = flash_bwd_case(gen, B, S, H, Hkv, Dh, Sq, causal, window)
+    args, pairs, cost, lib = flash_bwd_case(gen, B, S, H, Hkv, Dh, Sq, causal, window)
     mode = dict(causal=causal, window=window)
     got = fa.flash_attention_bwd_cuda(*args, **mode)
     want = fa.flash_attention_bwd_plain(*args, **mode)
@@ -3581,7 +3779,7 @@ def flash_bwd_at(gen, B, S, H, Hkv, Dh, Sq=None, causal=True, window=None):
                  for g, w in zip(got, want))
     check(excess <= 0, f"flash_attention_bwd at ({B}, {Sq} over {S}, {H}/{Hkv}, {Dh}), "
           f"causal {causal}, window {window}: over tolerance by {excess}")
-    b_ms, by = bound(nbytes, 10 * Dh * H * pairs, "bf16")
+    b_ms, by = bound(cost["bytes"], cost["flops"], "bf16")
     what = ("causal" if causal else "non-causal") + (f", window {window}" if window else "")
     return dict(shape=f"q ({B}, {Sq}, {H}, {Dh}) bf16 over k/v ({B}, {S}, {Hkv}, {Dh}), "
                       f"{what}, dO, lse", valid_pairs=pairs,
@@ -3604,10 +3802,7 @@ def ssd_row(gen, launches, err):
     from repro_torch.kernels import ssd_scan as ss
     B, S, H, P, G, N, Q = 4, 2048, 64, 64, 1, 128, 128
     x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16)
-    n_chunks = -(-S // Q)
-    ops = 2 * B * H * n_chunks * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P)
-    nbytes = (2 * x.numel() + Bm.numel() + Cm.numel()) * 2 + dt.numel() * 4 \
-        + 2 * H * 4 + B * H * P * N * 4
+    cost = ss.cost(x, dt, Bm, chunk=Q)
     _, passes = ss.bf16_launches(x, dt, A_log, Bm, Cm, D, chunk=Q)
     kpc = kernels_per_call(lambda: ss.ssd_scan_cuda(x, dt, A_log, Bm, Cm, D, chunk=Q))
     check(kpc == len(passes),
@@ -3619,7 +3814,7 @@ def ssd_row(gen, launches, err):
                         20),
                 cuda_ms(lambda: ss.ssd_scan_plain(x, dt, A_log, Bm, Cm, D,
                                                   chunk=Q), 2),
-                nbytes, ops, "bf16", None,
+                cost["bytes"], cost["flops"], "bf16", None,
                 earlier_ms=cuda_ms(lambda: ss._ssd_scan_cuda_cores(
                     x, dt, A_log, Bm, Cm, D, chunk=Q), 5),
                 kernels_per_call=kpc,
@@ -3646,10 +3841,7 @@ def ssd_bwd_row(gen, launches, err):
     x, dt, A_log, Bm, Cm, D = ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16)
     dy = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
     args = (x, dt, A_log, Bm, Cm, D, None, dy, None)
-    n_chunks = -(-S // Q)
-    ops = 2 * B * H * n_chunks * (Q * (Q + 1) // 2 * (3 * N + 2 * P) + 5 * Q * N * P)
-    nbytes = 2 * (2 * x.numel() + 2 * Bm.numel() + 2 * Cm.numel()) \
-        + 2 * dt.numel() * 4 + 4 * H * 4
+    cost = ss.cost_bwd(x, dt, Bm, chunk=Q)
     _, passes = ss.bwd_launches(*args, chunk=Q)
     _, earlier = ss.bwd_launches(*args, chunk=Q, per_head=True)
     kpc = kernels_per_call(lambda: ss.ssd_scan_bwd_cuda(*args, chunk=Q))
@@ -3662,7 +3854,7 @@ def ssd_bwd_row(gen, launches, err):
                 f"dy over x ({B}, {S}, {H}, {P}) bf16, B/C ({B}, {S}, {G}, {N}), chunk {Q}",
                 cuda_ms(lambda: ss.ssd_scan_bwd_cuda(*args, chunk=Q), 20),
                 cuda_ms(lambda: ss.ssd_scan_bwd_plain(*args, chunk=Q), 2),
-                nbytes, ops, "bf16", None, kernels_per_call=kpc,
+                cost["bytes"], cost["flops"], "bf16", None, kernels_per_call=kpc,
                 heads_per_tile=ss.bwd_heads_per_tile(B, S, H, G, Q, sms),
                 earlier_ms=cuda_ms(lambda: ss._ssd_scan_bwd_per_head(*args, chunk=Q), 20),
                 pass_ms={name: cuda_ms(run, 20) for name, run in passes},
@@ -3676,11 +3868,9 @@ def main():
         print("chip_smoke: CUDA is not available; this script runs on a GPU",
               file=sys.stderr)
         sys.exit(2)
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                    "src"))
     from repro_torch.configs import get_config, replace
     from repro_torch.device import resolve
-    from repro_torch.launch.train import TRAIN_OPT_DTYPE, TRAIN_PARAM_DTYPE
+    from repro_torch.launch.dryrun import TRAIN_OPT_DTYPE, TRAIN_PARAM_DTYPE
     resolve("cuda")                          # TF32 off for the f32 phase
 
     t0 = time.perf_counter()
@@ -3723,14 +3913,17 @@ def main():
     add(phase_train(olmo)[0])
     add(phase_train(smollm)[0])
     add(phase_train(whisper, seq=WHISPER_TEXT)[0])
-    add(phase_train(replace(qwen3, num_layers=QWEN3_TRAIN_LAYERS), steps=4)[0])
+    add(phase_train(replace(qwen3, num_layers=QWEN3_TRAIN_LAYERS), steps=4,
+                    published=qwen3)[0])
     add(phase_train(replace(mixtral, num_layers=MIXTRAL_TRAIN_LAYERS), steps=4,
-                    batch=2, seq=6144, micro=1, remat=True)[0])
+                    batch=2, seq=6144, micro=1, remat=True,
+                    published=get_config("mixtral-8x7b"))[0])
     add(phase_train(replace(llava, num_layers=LLAVA_TRAIN_LAYERS), steps=4,
-                    batch=2, seq=6144, micro=1, remat=True)[0])
+                    batch=2, seq=6144, micro=1, remat=True, published=llava)[0])
     add(phase_train(replace(grok, num_layers=GROK_TRAIN_LAYERS), steps=4, batch=2,
                     param_dtype=TRAIN_PARAM_DTYPE["grok-1-314b"],
-                    opt_dtype=TRAIN_OPT_DTYPE["grok-1-314b"], remat=True)[0])
+                    opt_dtype=TRAIN_OPT_DTYPE["grok-1-314b"], remat=True,
+                    published=get_config("grok-1-314b"))[0])
     add(phase_remat(llama))
     add(phase_remat(replace(mixtral, num_layers=MIXTRAL_TRAIN_LAYERS), batch=1,
                     seq=4224, micro=1, peak_drops=False))

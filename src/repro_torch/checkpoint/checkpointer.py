@@ -27,6 +27,12 @@ checkpoint and restore never sees a partial step.
 Async: ``save()`` copies the leaves to host numpy synchronously (the
 training step updates parameters in place, so the snapshot must be a copy),
 then writes on a background thread; ``wait()`` drains.
+
+Elastic restore: checkpoints hold full logical arrays keyed by tree path,
+so any mesh whose shards tile the dims can load any checkpoint:
+``restore_placed`` restores the full arrays on the host, then places each
+leaf on the caller's mesh, every rank slicing its own shard
+(``sharding.shard_tree``; ``runtime.elastic.elastic_restore``).
 """
 from __future__ import annotations
 
@@ -197,3 +203,14 @@ class Checkpointer:
                         for k, v in t.items()}
             return _leaf(arrays[prefix], meta["dtypes"][prefix])
         return step, fill(tree_like)
+
+    def restore_placed(self, tree_like, placements_tree, step: Optional[int] = None):
+        """Restore the full arrays, then place each leaf on a mesh: → (step,
+        tree of DTensors). ``placements_tree`` matches ``tree_like`` with a
+        ``(mesh, P)`` pair a leaf (``runtime.elastic.elastic_restore``
+        builds it from a spec tree); each rank keeps only its own shard, on
+        the mesh's device."""
+        from repro_torch.sharding.specs import place
+        step, host = self.restore(tree_like, step)
+        return step, map_tree(lambda a, mp: place(a, mp[1], mp[0]), host,
+                              placements_tree)

@@ -162,7 +162,8 @@ def _peek_sid(req) -> int:
             route = head.view("<u4")
             if int(route[0]) == GW_MAGIC:
                 return int(route[1])
-    except Exception:           # a malformed route counts as sid 0
+    # mpklint: disable=MPK105 reason=best-effort peek; malformed routes -> sid 0
+    except Exception:
         pass
     return 0
 

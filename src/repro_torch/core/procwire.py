@@ -1173,6 +1173,7 @@ class ProcMPKLinkSession(ProcSession):
         if self._read_check_ep != ep:
             self.registry.check(self.key_client, READ)
             self._read_check_ep = ep
+        # mpklint: disable=MPK102 reason=verify_view returns guard_copy's owned copy (core/framing.py verify_view); no arena view escapes
         return framing.verify_view(resp_buf[:self._w[b + _S_RESP_ROWS]],
                                    seed=self.seed, expect_seq=seq)
 

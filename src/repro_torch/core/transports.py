@@ -521,7 +521,8 @@ class Session:
                 self._notify_crash(ServiceCrashed(
                     f"service thread for session {self.name!r} crashed: "
                     f"{type(e).__name__}: {e}"))
-            except Exception:           # best effort: the session is dead
+            # mpklint: disable=MPK105 reason=crash notify is best-effort; session already dead
+            except Exception:
                 pass
 
     def _serve_loop(self):
@@ -1736,6 +1737,7 @@ class MPKLinkSession(Session):
         rframe, seq, rbuf = self._collect(ticket, timeout)
         try:
             self.registry.check(self.key_client, READ)
+            # mpklint: disable=MPK102 reason=verify_view returns guard_copy's owned copy (core/framing.py verify_view); no arena view escapes
             return framing.verify_view(rframe, seed=self.seed, expect_seq=seq)
         finally:                        # guard_copy (its reader) is queued
             self.transport.arena.release(rbuf)

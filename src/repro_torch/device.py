@@ -2,7 +2,9 @@
 
 Entry points take ``device="cuda"`` by default and call :func:`resolve`,
 which raises when CUDA is absent instead of carrying on on the CPU. Tests
-pass ``device="cpu"`` to run the plain versions of the kernels.
+pass ``device="cpu"`` to run the plain versions of the kernels;
+``device="meta"`` builds shapes only, for a trace that counts a step
+without running it (``launch.dryrun``). No entry point defaults to it.
 """
 from __future__ import annotations
 
@@ -22,9 +24,19 @@ def resolve(device="cuda") -> torch.device:
                                "run the plain versions of the kernels")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif d.type != "cpu":
+    elif d.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return d
+
+
+class MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is meta: the port's initialisers draw
+    on ``gen.device``, so ``init_params(cfg, MetaGenerator())`` builds the
+    parameter tree's shapes and dtypes and allocates nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
 
 
 def card_memory(device) -> int | None:

@@ -56,6 +56,20 @@ _SLOTS_LOCK = threading.Lock()
 _SLOTS: Dict[Tuple[int, torch.dtype, int, int], int] = {}
 
 
+def cost(q, k, kv_pos, rows: Optional[int] = None) -> dict:
+    """The kernel's work on q (B, 1, H, Dh) over a (B, S, Hkv, Dh) cache:
+    4·H·Dh FLOPs a cache row it reads (``rows``, summed over the batch;
+    default every one of the B·S: masked tiles are never loaded) in q's
+    dtype; those rows of k and v read once, q read and the output written
+    once, both position vectors read."""
+    B, _, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    rows = B * S if rows is None else rows
+    nbytes = (2 * rows * Hkv * Dh + 2 * q.numel()) * q.element_size() \
+        + 4 * kv_pos.numel() + 4 * B
+    return {"flops": 4 * H * Dh * rows, "bytes": nbytes, "dtype": q.dtype}
+
+
 def decode_attention_plain(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                            window: Optional[int] = None) -> torch.Tensor:
     """The same function in plain PyTorch (``ref.attention_ref``)."""

@@ -57,6 +57,51 @@ _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
+def valid_pairs(Sq: int, Skv: int, *, causal: bool = True,
+                window: Optional[int] = None) -> int:
+    """(q, kv) pairs one row and head attends when its Sq queries sit at the
+    last Sq of Skv positions 0 … Skv-1 (prefill and training): query p sees
+    min(p + 1, W) keys causally, Skv - max(0, p - W + 1) otherwise."""
+    W = window if window is not None else Skv + 1
+    a, b = Skv - Sq, Skv
+    m = min(max(a, W - 1), b)           # queries a … m-1 see no window edge
+    n = b - m
+    if causal:
+        return (m - a) * (a + m + 1) // 2 + n * W
+    return Sq * Skv - (n * (m + b - 1) // 2 - n * (W - 1))
+
+
+def cost(q, k, *, causal: bool = True, window: Optional[int] = None,
+         pairs: Optional[int] = None, lse: bool = False) -> dict:
+    """The forward kernel's work on q (B, Sq, H, Dh) over k (B, Skv, Hkv,
+    Dh): 4·Dh·H FLOPs a valid pair (``pairs``, summed over rows; default
+    :func:`valid_pairs` of every row) in q's dtype; q, k, v and both
+    position vectors read once, the output (and with ``lse`` the
+    log-sum-exp) written once."""
+    B, Sq, H, Dh = q.shape
+    Skv = k.shape[1]
+    if pairs is None:
+        pairs = B * valid_pairs(Sq, Skv, causal=causal, window=window)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        + 4 * (B * Sq + B * Skv) + (4 * B * Sq * H if lse else 0)
+    return {"flops": 4 * Dh * H * pairs, "bytes": nbytes, "dtype": q.dtype}
+
+
+def cost_bwd(q, k, *, causal: bool = True, window: Optional[int] = None,
+             pairs: Optional[int] = None) -> dict:
+    """The backward kernels' work: 10·Dh·H FLOPs a valid pair (the
+    recomputed scores, dP, dS and the dQ, dK, dV products); q, k, v, the
+    output, dO and the log-sum-exp read once, dQ, dK, dV written once,
+    with both position vectors."""
+    B, Sq, H, Dh = q.shape
+    Skv = k.shape[1]
+    if pairs is None:
+        pairs = B * valid_pairs(Sq, Skv, causal=causal, window=window)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + 4 * B * Sq * H + 4 * (B * Sq + B * Skv)
+    return {"flops": 10 * Dh * H * pairs, "bytes": nbytes, "dtype": q.dtype}
+
+
 def _valid(qp, kp, causal: bool, window: Optional[int]) -> torch.Tensor:
     """qp (B, q), kp (B, k) → (B, 1, 1, q, k) bool."""
     qp = qp[:, None, None, :, None]

@@ -61,6 +61,24 @@ _SIGNATURES = {
 
 
 # ---------------------------------------------------------------------------
+# costs: the work of one call (128 multiply-adds a 128-word row), in the
+# integer ops the roofline counts at the f32 peak
+# ---------------------------------------------------------------------------
+
+def cost(kernel: str, words: torch.Tensor) -> dict:
+    """The work of one call of ``kernel`` on ``words`` (guard_copy's
+    payload, mac_batch's stack, mac_update's block; mac_init_state and
+    mac_finalize take the (128,) state): every payload word read once, the
+    copy, MACs and flags or the state written once."""
+    n = words.numel()
+    nbytes = {"guard_copy": 8 * n + 12, "mac_batch": 4 * n + 4 * words.shape[0],
+              "mac_update": 4 * n + 2 * 4 * LANES, "mac_init_state": 4 * LANES,
+              "mac_finalize": 4 * LANES + 4}[kernel]
+    flops = LANES if kernel == "mac_init_state" else 2 * n
+    return {"flops": flops, "bytes": nbytes, "dtype": torch.float32}
+
+
+# ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 

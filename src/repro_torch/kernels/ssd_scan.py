@@ -73,6 +73,38 @@ def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(t, widths)
 
 
+def cost(x, dt, B, init_state=None, *, chunk: int = 128) -> dict:
+    """The scan's work on x (Bb, S, H, P) with B/C (Bb, S, G, N): the
+    chunked form's products, per chunk and head C·Bᵀ and att·x over the
+    Q(Q+1)/2 causal pairs, the inter term and the state carry, in x's
+    dtype; x, B, C, dt, A_log and D read once, y and the final f32 state
+    written once (an init state read once)."""
+    Bb, S, H, P = x.shape
+    N = B.shape[-1]
+    Q, nc = chunk, -(-S // chunk)
+    flops = 2 * Bb * H * nc * (Q * (Q + 1) // 2 * (N + P) + 2 * Q * N * P)
+    state = Bb * H * P * N * 4
+    nbytes = (2 * x.numel() + 2 * B.numel()) * x.element_size() \
+        + dt.numel() * dt.element_size() + 2 * H * 4 + state \
+        + (state if init_state is not None else 0)
+    return {"flops": flops, "bytes": nbytes, "dtype": x.dtype}
+
+
+def cost_bwd(x, dt, B, *, chunk: int = 128) -> dict:
+    """The backward kernels' work: per chunk and head C·Bᵀ, dy·xᵀ and the
+    three intra products over the Q(Q+1)/2 causal pairs, and five Q·N·P
+    products (the recomputed chunk states, Σ exp(cum)·dy ⊗ C, and the carry
+    and inter terms of dx, dB, dC), in x's dtype; x, dt, B, C, dy, A_log
+    and D read once, dx, ddt, dB, dC, dA_log and dD written once."""
+    Bb, S, H, P = x.shape
+    N = B.shape[-1]
+    Q, nc = chunk, -(-S // chunk)
+    flops = 2 * Bb * H * nc * (Q * (Q + 1) // 2 * (3 * N + 2 * P) + 5 * Q * N * P)
+    nbytes = (2 * x.numel() + 4 * B.numel()) * x.element_size() \
+        + 2 * dt.numel() * dt.element_size() + 4 * H * 4
+    return {"flops": flops, "bytes": nbytes, "dtype": x.dtype}
+
+
 def ssd_scan_plain(x, dt, A_log, B, C, D, init_state=None, *,
                    chunk: int = 128):
     """The chunked SSD in plain PyTorch, with the masked exponent."""

@@ -10,15 +10,17 @@ failure injection, straggler telemetry), on the GPU by default.
 (on the card: flash attention's and the SSD scan's forward and backward
 kernels in every layer); without it, the reduced twin in f32 compute.
 Parameters and AdamW moments are f32, except where the reference's dry run
-keeps them in bf16 (``TRAIN_PARAM_DTYPE`` / ``TRAIN_OPT_DTYPE``, the
-tables of ``repro.launch.dryrun``: grok-1-314b), reduced or not. Weights
+keeps them in bf16 (``TRAIN_PARAM_DTYPE`` / ``TRAIN_OPT_DTYPE`` of
+``launch.dryrun``, the reference's tables: grok-1-314b), reduced or not. Weights
 are random, drawn from ``--seed``; the data is ``SyntheticDataset`` (with
 a VLM's patch embeddings and an encoder-decoder's frames: whisper-tiny
-trains on 1500 frames a row). A model whose parameters, gradients and two
-moments exceed the card's memory (``train_bytes_per_param``) is refused
-with the sizes and the depth that would fit (qwen3-14b, mixtral-8x7b,
-grok-1-314b, llava-next-mistral-7b at their published depths; a cut depth
-trains only through ``chip_smoke.py``'s constants).
+trains on 1500 frames a row). On a card, a model whose training state
+(parameters, gradients and two moments, ``train_bytes_per_param``) and
+one microbatch's activations exceed the card's memory is refused with
+the dry run's bytes (``launch.dryrun.fits_depth``, on the meta device)
+and the depth that would fit (qwen3-14b, mixtral-8x7b, grok-1-314b,
+llava-next-mistral-7b at their published depths; a cut depth trains only
+through ``chip_smoke.py``'s constants).
 """
 from __future__ import annotations
 
@@ -28,14 +30,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import (ARCH_IDS, OptimizerConfig, TrainConfig,
-                                 get_config, get_reduced, replace)
-from repro_torch.device import card_memory, check_fits
+                                 get_config, get_reduced)
+from repro_torch.device import MetaGenerator, card_memory
+from repro_torch.launch.dryrun import TRAIN_OPT_DTYPE, TRAIN_PARAM_DTYPE, fits_depth
+from repro_torch.models import Impl, init_params
 from repro_torch.runtime import FailureInjector, Trainer
 from repro_torch.runtime.steps import train_grad_dtype
-
-# the reference's training dtypes where they are not f32 (repro.launch.dryrun)
-TRAIN_PARAM_DTYPE = {"grok-1-314b": torch.bfloat16}
-TRAIN_OPT_DTYPE = {"grok-1-314b": torch.bfloat16}
+from repro_torch.tree import leaves
 
 
 def _name(dtype: torch.dtype) -> str:
@@ -49,14 +50,6 @@ def train_bytes_per_param(param_dtype: torch.dtype, opt_dtype: torch.dtype,
     f32, 8 with bf16 parameters and moments."""
     return (param_dtype.itemsize + train_grad_dtype(param_dtype, n_micro).itemsize
             + 2 * opt_dtype.itemsize)
-
-
-def fitting_depth(cfg, bytes_per_param: int, capacity: int) -> int:
-    """The most layers of ``cfg`` whose training state fits ``capacity``
-    bytes (0: not even the embeddings and one layer)."""
-    one, two = (replace(cfg, num_layers=n).param_count() for n in (1, 2))
-    per_layer = two - one
-    return max(0, int((capacity / bytes_per_param - (one - per_layer)) // per_layer))
 
 
 def main(argv=None):
@@ -95,13 +88,19 @@ def main(argv=None):
           f"({'full' if full else 'reduced'}) on {args.device}, "
           f"{_name(pdt)} parameters, {_name(odt)} moments")
     capacity = card_memory(args.device)
-    try:
-        check_fits(f"training {cfg.name} ({_name(pdt)} parameters, {_name(gdt)} "
-                   f"gradients, {_name(odt)} AdamW moments, {per} bytes a parameter)",
-                   per * cfg.param_count(), capacity)
-    except ValueError as e:
-        ap.error(f"{e}; {fitting_depth(cfg, per, capacity)} of its "
-                 f"{cfg.num_layers} layers would fit; it needs the multi-device fabric")
+    if capacity is not None:
+        plan = fits_depth(cfg, "train", batch, seq, capacity, micro=micro,
+                          param_dtype=pdt, opt_dtype=odt,
+                          dtype=torch.bfloat16 if full else torch.float32, impl=Impl())
+        if plan["need_bytes"] > capacity:
+            state = per * sum(t.numel() for t in leaves(init_params(cfg, MetaGenerator())))
+            ap.error(f"training {cfg.name} ({_name(pdt)} parameters, {_name(gdt)} "
+                     f"gradients, {_name(odt)} AdamW moments, {per} bytes a parameter) "
+                     f"needs {state / 1e9:.1f} GB of state and "
+                     f"{(plan['need_bytes'] - state) / 1e9:.1f} GB of activations "
+                     f"(the dry run), more than the card's {capacity / 1e9:.1f} GB; "
+                     f"{plan['fits_depth']} of its {cfg.num_layers} layers would fit; "
+                     f"it needs the multi-device fabric")
 
     tcfg = TrainConfig(
         microbatch_size=micro, dtype="bfloat16" if full else "float32",

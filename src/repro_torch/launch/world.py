@@ -99,7 +99,8 @@ def run_world(fn: Callable, world_size: int, *args, device: str = "cuda",
         grace = None                     # a result may trail its rank's exit
         while len(results) < world_size:
             try:
-                rank, ok, value = out.get(timeout=0.5)
+                rank, ok, value = out.get(
+                    timeout=min(0.5, max(0.0, deadline - time.monotonic())))
             except queue.Empty:
                 dead = [r for r, p in enumerate(procs)
                         if r not in results and p.exitcode is not None]

@@ -82,9 +82,11 @@ def ring_cache_insert(cache: dict, k_new, v_new, pos: int) -> dict:
     ``pos`` is one scalar for the whole batch, as in the reference; the
     slot is computed on the host, so the insert does not sync."""
     slot = int(pos) % cache["k"].shape[1]
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
-    cache["slot_pos"][slot] = int(pos)
+    # one-slot slices, not an index: a cache split along its slots (the dry
+    # run on a mesh) takes a slice as the dense insert's, not an int index
+    cache["k"][:, slot:slot + 1] = k_new.to(cache["k"].dtype)
+    cache["v"][:, slot:slot + 1] = v_new.to(cache["v"].dtype)
+    cache["slot_pos"][slot:slot + 1] = int(pos)
     return cache
 
 

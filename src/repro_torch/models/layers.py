@@ -145,7 +145,7 @@ def lm_logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     w = w.to(x.dtype)
     if x.dtype == torch.float32:
         logits = x @ w.T
-    elif x.device.type == "cuda":
+    elif x.device.type in ("cuda", "meta"):         # meta: the card's path, counted
         logits = _HeadF32.apply(x.reshape(-1, x.shape[-1]), w) \
             .reshape(*x.shape[:-1], -1)
     else:

@@ -89,14 +89,17 @@ def dispatch(route: dict, xf: torch.Tensor, n_experts: int):
     """One routing group's expert input: each kept (token, choice) pair's
     row of xf (T, D) copied to its slot → ((E, C, D) input, (T, k) flat
     slots). A dropped pair's flat slot is 0: it is combined with weight 0
-    and writes nowhere."""
+    and writes nowhere. Every pair is copied, a dropped one to a spare row
+    past the E·C slots that is cut off, so no shape depends on the routing
+    (no host sync, and a meta-device trace runs it)."""
     C = route["capacity"]
-    flat = route["expert"] * C + torch.where(route["keep"], route["slot"], 0)
-    kept = route["keep"].reshape(-1)
+    keep = route["keep"]
+    flat = route["expert"] * C + torch.where(keep, route["slot"], 0)
+    dest = torch.where(keep, flat, n_experts * C).reshape(-1)
     token = torch.arange(xf.shape[0], device=xf.device).repeat_interleave(
-        route["keep"].shape[1])
-    expert_in = xf.new_zeros((n_experts * C, xf.shape[-1])).index_copy(
-        0, flat.reshape(-1)[kept], xf[token[kept]])
+        keep.shape[1])
+    expert_in = xf.new_zeros((n_experts * C + 1, xf.shape[-1])).index_copy(
+        0, dest, xf[token])[:n_experts * C]
     return expert_in.view(n_experts, C, xf.shape[-1]), flat
 
 

@@ -1,4 +1,4 @@
-from repro_torch.runtime.elastic import (plan_fleet_scaling,
+from repro_torch.runtime.elastic import (elastic_restore, plan_fleet_scaling,
                                          plan_gateway_recovery,
                                          plan_outlier_ejection, plan_remesh,
                                          remesh)
@@ -14,7 +14,7 @@ from repro_torch.runtime.steps import (make_decode_step, make_prefill_step,
 from repro_torch.runtime.train_loop import Trainer, TrainReport
 
 __all__ = ["plan_fleet_scaling", "plan_gateway_recovery",
-           "plan_outlier_ejection", "plan_remesh", "remesh", "FailureInjector", "GatewaySupervisor",
+           "plan_outlier_ejection", "plan_remesh", "remesh", "elastic_restore", "FailureInjector", "GatewaySupervisor",
            "GuardTripError", "HeartbeatMonitor", "StragglerDetector",
            "EngineService", "Request", "ServingEngine", "encode_prompt",
            "FleetHandler", "fleet_handler", "register_engine_fleet",

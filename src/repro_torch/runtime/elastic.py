@@ -10,11 +10,10 @@ replica fleet's snapshot (``core.gateway.FleetSupervisor``), and
 tensor parallelism (the ``model`` axis) is pinned, since its size is a
 property of the model's memory footprint, and the data-parallel axis
 shrinks to the whole rows that survive. :func:`remesh` builds that mesh
-(a ``DeviceMesh`` over the first dp · tp ranks of the world).
-
-Not ported yet (ROADMAP.md queue 1, item 6, with the sharding specs it
-takes): the reference's ``elastic_restore``, which places a checkpoint on
-the new mesh.
+(a ``DeviceMesh`` over the first dp · tp ranks of the world), and
+:func:`elastic_restore` places the latest checkpoint on it: checkpoints
+hold full logical arrays keyed by tree path, so any mesh that tiles the
+dims loads any checkpoint.
 """
 from __future__ import annotations
 
@@ -54,6 +53,17 @@ def remesh(n_alive_chips: int, tp: int = 16, axes=("data", "model"),
     return DeviceMesh(resolve(device).type,
                       torch.arange(dp * tp).reshape(dp, tp),
                       mesh_dim_names=names)
+
+
+def elastic_restore(ckpt, like_tree, mesh, spec_tree, step: Optional[int] = None):
+    """Restore the latest checkpoint (or ``step``) of ``ckpt`` (a
+    ``checkpoint.Checkpointer``) and place it on a (possibly different)
+    mesh by ``spec_tree`` (a tree of ``sharding.P``). → (step,
+    placed_tree): DTensors whose local shards every rank of the mesh slices
+    itself, no collective run."""
+    from repro_torch.tree import map_tree
+    return ckpt.restore_placed(like_tree, map_tree(lambda s: (mesh, s), spec_tree),
+                               step)
 
 
 def plan_gateway_recovery(health: dict, restartable: set) -> list:

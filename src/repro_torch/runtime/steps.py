@@ -3,7 +3,7 @@ prefill and decode (the port of ``repro.runtime.steps``).
 
 There is no mesh: the reference's ``dp`` and ``grad_specs`` shard the
 microbatch and the gradient accumulator over devices, which one card does
-not have.
+not have (``launch.dryrun`` places them when it counts a step on a mesh).
 """
 from __future__ import annotations
 
@@ -23,6 +23,12 @@ def train_grad_dtype(param_dtype: torch.dtype, n_micro: int) -> torch.dtype:
     """The dtype a train step keeps its gradients in: one microbatch's stay
     in the parameters' dtype, a sum of more is f32."""
     return param_dtype if n_micro == 1 else torch.float32
+
+
+def _microbatch(v, i: int, n_micro: int):
+    """Microbatch i of n_micro of a batch field: rows i·r … (i+1)·r."""
+    r = v.shape[0] // n_micro
+    return v[i * r:(i + 1) * r]
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, impl: Impl = Impl()):
@@ -54,15 +60,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, impl: Impl = Impl()):
         if B % n_micro:
             raise ValueError(f"train_step: a batch of {B} rows does not split "
                              f"into {n_micro} microbatches of {micro}")
-        rows = B // n_micro
         flat = leaves(params)
         found = [p.requires_grad for p in flat]
         for p in flat:
             p.requires_grad_(True)
         try:
-            gsum, loss_sum = None, torch.zeros((), device=flat[0].device)
+            gsum, loss_sum = None, None
             for i in range(n_micro):
-                mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+                mb = {k: _microbatch(v, i, n_micro) for k, v in batch.items()}
                 with record_function("train_step.forward"):
                     loss, _ = loss_fn(cfg, params, mb, impl=impl, dtype=dtype)
                 with record_function("train_step.backward"):
@@ -74,7 +79,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, impl: Impl = Impl()):
                 else:
                     for a, g in zip(gsum, grads):
                         a.add_(g.float())
-                loss_sum += loss.detach()
+                loss_sum = loss.detach() if loss_sum is None \
+                    else loss_sum + loss.detach()
                 del loss, grads
         finally:
             for p, r in zip(flat, found):

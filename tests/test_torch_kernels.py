@@ -123,12 +123,30 @@ def test_plain_twins_agree_with_reference_finalize():
 
 # -- dispatch -------------------------------------------------------------------
 
+class _OnXpu(torch.Tensor):
+    """A tensor that says it lies on an XPU and refuses every op: a device
+    with no route, without an XPU."""
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError("no op runs on this tensor")
+
+
 def test_no_route_for_other_devices():
+    """A device that is neither the CPU, CUDA nor meta has no route. On the
+    meta device (the dry run's shape-only trace) the entry points return
+    empty results of the kernels' shapes, launching nothing."""
+    other = _OnXpu._make_wrapper_subclass(_OnXpu, (2, 128), dtype=torch.uint32,
+                                          device="xpu")
+    with pytest.raises(ValueError):
+        ops.guard_copy(other, 0, 0)
+    with pytest.raises(ValueError):
+        ops.mac_init_state(0, "xpu")
     meta = torch.empty((2, 128), dtype=torch.uint32, device="meta")
-    with pytest.raises(ValueError):
-        ops.guard_copy(meta, 0, 0)
-    with pytest.raises(ValueError):
-        ops.mac_init_state(0, "meta")
+    copy, mac, ok = ops.guard_copy(meta, 0, 0)
+    assert copy.shape == (2, 128) and mac.shape == ok.shape == (1,)
+    assert {copy.device.type, mac.device.type, ok.device.type} == {"meta"}
+    assert ops.mac_init_state(0, "meta").shape == (128,)
 
 
 def test_cuda_launchers_refuse_cpu_tensors():

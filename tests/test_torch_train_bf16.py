@@ -369,21 +369,30 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("arch,const,dtype,gb", [
-    ("qwen3-14b", "QWEN3_TRAIN_LAYERS", torch.float32, 46.0),
-    ("mixtral-8x7b", "MIXTRAL_TRAIN_LAYERS", torch.float32, 50.6),
-    ("llava-next-mistral-7b", "LLAVA_TRAIN_LAYERS", torch.float32, 46.1),
-    ("grok-1-314b", "GROK_TRAIN_LAYERS", torch.bfloat16, 52.2)])
-def test_chip_smoke_training_depths_fit(arch, const, dtype, gb):
+@pytest.mark.parametrize("arch,const,dtype,gb,shape", [
+    ("qwen3-14b", "QWEN3_TRAIN_LAYERS", torch.float32, 46.0, (8, 2048, 2, False)),
+    ("mixtral-8x7b", "MIXTRAL_TRAIN_LAYERS", torch.float32, 50.6, (2, 6144, 1, True)),
+    ("llava-next-mistral-7b", "LLAVA_TRAIN_LAYERS", torch.float32, 46.1,
+     (2, 6144, 1, True)),
+    ("grok-1-314b", "GROK_TRAIN_LAYERS", torch.bfloat16, 52.2, (2, 2048, 2, True))])
+def test_chip_smoke_training_depths_fit(arch, const, dtype, gb, shape):
     """``chip_smoke.py``'s cut depths hold the bytes of state its comments
-    state (one microbatch's bf16 gradients for grok), each the most
-    layers that fit 80 GB or fewer, and the full depth is refused."""
+    state (one microbatch's bf16 gradients for grok), each at most the dry
+    run's ``fits_depth`` for its train line's batch, sequence, microbatch
+    and remat on 80 GB (state plus activations), and the full depth is
+    refused."""
+    from repro_torch.launch.dryrun import fits_depth
+    from repro_torch.models import Impl
     cfg = get_config(arch)
     n = getattr(_chip_smoke(), const)
     per = train_launcher.train_bytes_per_param(dtype, dtype, 1)
     assert per == (8 if dtype == torch.bfloat16 else 16)
     assert round(per * replace(cfg, num_layers=n).param_count() / 1e9, 1) == gb
-    assert n <= train_launcher.fitting_depth(cfg, per, 80_000_000_000) < cfg.num_layers
+    B, S, micro, remat = shape
+    plan = fits_depth(cfg, "train", B, S, 80_000_000_000, micro=micro, param_dtype=dtype,
+                      opt_dtype=dtype, impl=Impl(remat=remat))
+    assert n <= plan["fits_depth"] < cfg.num_layers
+    assert plan["need_bytes"] > 80_000_000_000
 
 
 @pytest.mark.parametrize("argv,says", [
