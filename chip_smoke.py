@@ -147,6 +147,26 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              Printed, not asserted: requests/s and p50/p99 of calls at 1
              and 12 clients, direct and coalesced, and of a 100-word wc
              call with infer idle and ticking, beside ``os.cpu_count()``.
+   copyplane — the legacy copy plane (``framing.ZERO_COPY = False``: pad
+             and header concatenations, copies into the region or envelope,
+             the two-launch MAC kernels ``mac_update_two_pass`` /
+             ``mac_batch_two_pass``) beside the in-place one on ``cuda:0``:
+             frames of the two planes bit-identical (64 KiB, 1 MiB, a
+             padded size; batches too) and equal to the CPU's; one session
+             interleaving the planes keeps its sequence; mpklink_opt
+             through the gateway with the ``digest`` service at 64 KiB and
+             1 MiB, k = 1 and 4, in both planes (digests right; 0
+             concatenations a request in place, at least 1 in the legacy
+             plane; every cell's guard launches exactly
+             ``launch.gateway_bench``'s, the two-launch kernels only in the
+             legacy plane). Printed, not asserted: requests/s, MiB/s,
+             p50/p99, bytes copied a request, ``zero_copy_speedup``.
+   examples — the seven ``repro_torch.examples`` at their default sizes
+             on the card: six in this process (each's launch counts read
+             around its ``main``), the fabric demo as a ``python -m``
+             subprocess (its ranks re-import the main module). Each raises
+             on a failed check, must end with its ``... OK`` line and
+             launch its path's kernels; outputs in ``build/examples/``.
    proc    — every service in a process of its own (``core.procwire``,
              children from a forkserver, the slab shared through CUDA
              IPC): the word count at 1e2, 1e4 and 1e6 words (3 reps, each
@@ -167,7 +187,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
              each child (``FLEET_STATS``). Then kill -9 of one child under
              4 client threads: every call correct or typed;
              ``FleetSupervisor(target=2)`` brings the replica back; tokens
-             after the restart match; after close no ``mpk_`` segment and
+             after the restart match; after close no ``mpkt_`` segment and
              no child is left. Last, ``ServiceGateway("mpklink_opt_proc")``
              (the gateway in its own child) under a FaultPlan of all eight
              kinds: every fault typed as expected, every wait bounded.
@@ -238,8 +258,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
 Then a ``kernels`` JSON line (times from CUDA events, bounds from this
 run's inputs, launches summed over the fabric (its ranks'), ipc, prefill,
-serve, gateway, proc (the parent's and the children's), decode and train
-phases; the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
+serve, gateway, copyplane, examples, proc (the parent's and the
+children's), decode and train phases; ``mac_batch_two_pass`` and
+``mac_update_two_pass``, the legacy copy plane's MAC kernels, are rows of
+their own, with ``at_copyplane_*`` beside the one-launch kernel at the
+copyplane phase's 1 MiB shapes; the flash and SSD rows add ``earlier_ms``, the CUDA-core design they
 replaced timed in this run, and the two backwards the design each replaced
 (flash: ``mma.sync``; SSD: the per-head chunk kernel, also
 ``earlier_pass_ms``); the four add ``kernels_per_call``, the kernel
@@ -286,7 +309,8 @@ import time
 
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 # the H100 SXM's peaks and the least time of a piece of work: one set, the
 # port's roofline's (a checkout without src/ fails here, printing nothing)
 from repro_torch.roofline import HBM_BW, PEAK_FLOPS, bound  # noqa: E402
@@ -559,7 +583,7 @@ def check_guard_macs(gen):
             "mac_batch")
     del big
     return dict.fromkeys(("guard_copy", "mac_init_state", "mac_update", "mac_finalize",
-                          "mac_batch"), 0)
+                          "mac_batch", "mac_batch_two_pass", "mac_update_two_pass"), 0)
 
 def decode_inputs(gen, B, S, H, Hkv, Dh, dtype, layout="lens", lens=None):
     """Random q/k/v and positions: "lens" fills the first lens[b] slots of
@@ -1853,6 +1877,218 @@ def phase_gateway(cfg, smi, n_clients=12, max_new=16):
 
 
 # ---------------------------------------------------------------------------
+# copyplane: the legacy copy plane beside the in-place one
+# ---------------------------------------------------------------------------
+
+COPYPLANE_SIZES = (64 << 10, 1 << 20)
+COPYPLANE_REPS = 20
+
+
+def _copyplane_frames(gen):
+    """Frames of the two planes on the card, bit for bit: ``build_frame``
+    at 64 KiB, 1 MiB and a padded size, two sequence numbers, against each
+    other and against the in-place frame sealed on the CPU; a legacy batch
+    (``seal_batch_legacy``) against ``seal_batch``."""
+    from repro_torch.core import framing
+    sizes = COPYPLANE_SIZES + ((64 << 10) + 3,)
+    for nbytes in sizes:
+        p = torch.randint(0, 256, (nbytes,), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+        for seq in (0, 77):
+            framing.ZERO_COPY = True
+            zc = framing.build_frame(p, seed=SEED, seq=seq, device="cuda")
+            host = framing.build_frame(p.cpu(), seed=SEED, seq=seq, device="cpu")
+            framing.ZERO_COPY = False
+            try:
+                legacy = framing.build_frame(p, seed=SEED, seq=seq, device="cuda")
+            finally:
+                framing.ZERO_COPY = True
+            check(_same(legacy, zc) and torch.equal(legacy.cpu().view(torch.int32),
+                                                    host.view(torch.int32)),
+                  f"copyplane: {nbytes}-byte frames differ between the planes")
+        framing.ZERO_COPY = False
+        try:
+            lb = framing.seal_batch_legacy([p] * 4, seed=SEED, seqs=[1, 2, 3, 4],
+                                           device="cuda")
+        finally:
+            framing.ZERO_COPY = True
+        zb = framing.seal_batch([p] * 4, seed=SEED, seqs=[1, 2, 3, 4], device="cuda")
+        check(all(_same(a, b) for a, b in zip(lb, zb)),
+              f"copyplane: {nbytes}-byte batch frames differ between the planes")
+    return len(sizes)
+
+
+def _copyplane_interleaved():
+    """One mpklink_opt session on the card taking legacy and in-place
+    requests in turn (the reference's
+    ``test_legacy_mode_interoperates_on_the_wire``): every count right and
+    the session's sequence at the number of requests."""
+    from repro_torch.core import framing
+    from repro_torch.core.transports import MPKLinkOptTransport
+    from repro_torch.core.wordcount import make_text, parse_count, wordcount_handler
+    tr = MPKLinkOptTransport(wordcount_handler, device="cuda")
+    s = tr.connect("mixed")
+    modes = (False, True, False, True, True, False)
+    try:
+        for i, zc in enumerate(modes):
+            framing.ZERO_COPY = zc
+            n = 5 + 997 * i
+            got = parse_count(s.request(make_text(n, seed=i)))
+            check(got == n, f"copyplane: interleaved request {i}: {got} != {n}")
+    finally:
+        framing.ZERO_COPY = True
+        tr.close()
+    check(s._seq == len(modes), f"copyplane: the session's seq is {s._seq}")
+    return len(modes)
+
+
+def phase_copyplane(smi, reps=COPYPLANE_REPS):
+    """The legacy copy plane (``framing.ZERO_COPY = False``: pad and header
+    concatenations, copies into the region or envelope, the two-launch MAC
+    kernels) beside the in-place one, on ``cuda:0``. Held: frames of the two
+    planes bit-identical on the card (and to the CPU's); one session that
+    interleaves the planes keeps its sequence; then ``mpklink_opt`` through
+    the gateway with the ``digest`` service at 64 KiB and 1 MiB, k = 1 and
+    4 in flight (``launch.gateway_bench.run_payload_cell``, a fresh gateway
+    a plane, as the reference's sweep runs it): digests right in both
+    planes, ``concat_calls`` 0 a request in place and at least 1 in the
+    legacy plane, and each cell's guard launches exactly
+    ``gateway_bench.single_launches`` / ``batch_launches`` a call (the
+    two-launch kernels only in the legacy plane). Printed, not asserted:
+    requests/s, MiB/s, p50/p99, bytes copied a request and
+    ``zero_copy_speedup``. → the launches of the cells."""
+    import numpy as np
+    from repro_torch.core import ServiceGateway, framing
+    from repro_torch.kernels import ops
+    from repro_torch.launch import gateway_bench as gb
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    checks = {"frame_sizes_bit_identical": _copyplane_frames(gen),
+              "interleaved_requests": _copyplane_interleaved()}
+    cells, launches = [], {}
+    for zero_copy in (False, True):
+        gw = ServiceGateway("mpklink_opt", max_keys=256, device="cuda")
+        gw.register_service("digest", gb.digest_handler)
+        gw.start()
+        try:
+            probe = gw.connect(f"copyplane-probe-{zero_copy}")
+            p = np.random.default_rng(5).integers(0, 256, 70_001).astype(np.uint8)
+            framing.ZERO_COPY = zero_copy
+            try:
+                got = [int(probe.call("digest", p)[0])] + [
+                    int(r[0]) for r in probe.call_batch("digest", [p, p[:9]])]
+            finally:
+                framing.ZERO_COPY = True
+            want = [int(p.sum(dtype=np.int64)), int(p.sum(dtype=np.int64)),
+                    int(p[:9].sum(dtype=np.int64))]
+            check(got == want, f"copyplane: digests {got} != {want} "
+                               f"(zero_copy={zero_copy})")
+            for nbytes in COPYPLANE_SIZES:
+                for k in (1, gb.PAYLOAD_IN_FLIGHT):
+                    ops.LAUNCHES.reset()
+                    cell = gb.run_payload_cell(gw, nbytes, reps, zero_copy, k)
+                    n = {name: v for name, v in ops.LAUNCHES.snapshot().items() if v}
+                    per = (gb.single_launches(nbytes, 8, "cuda", zero_copy) if k == 1
+                           else gb.batch_launches([nbytes] * k, [8] * k, "cuda",
+                                                  zero_copy))
+                    want = {name: v * (reps + 3) for name, v in per.items()}
+                    check(n == want, f"copyplane {cell['mode']} {nbytes} k={k}: "
+                                     f"launches {n} != {want}")
+                    concat = cell["concat_calls_per_request"]
+                    check(concat == 0 if zero_copy else concat >= 1,
+                          f"copyplane {cell['mode']} {nbytes} k={k}: "
+                          f"{concat} concatenations a request")
+                    cell.update(transport="mpklink_opt", launches=n)
+                    cells.append(cell)
+                    for name, v in n.items():
+                        launches[name] = launches.get(name, 0) + v
+        finally:
+            gw.close()
+    speedup = gb.payload_speedup(cells)
+    emit(phase="copyplane", card=smi, transport="mpklink_opt", reps=reps,
+         cells=cells, zero_copy_speedup=speedup,
+         zero_copy_gate_mpklink_opt_1p5x=gb.zero_copy_gate(speedup),
+         checks=checks, launches=launches, wall_s=time.perf_counter() - t_phase)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# examples: the seven example modules on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES_IN_PROCESS = ("mpklink_demo", "gateway_demo", "chaos_demo", "quickstart",
+                       "serve_decode", "train_e2e")
+EXAMPLE_LAUNCHES = {"mpklink_demo": ("guard_copy", "mac_batch", "mac_update"),
+                    "gateway_demo": ("guard_copy", "mac_update"),
+                    "chaos_demo": ("guard_copy", "mac_update"),
+                    "quickstart": ("flash_attention", "flash_attention_bwd",
+                                   "decode_attention", "guard_copy"),
+                    "serve_decode": ("ssd_scan",),
+                    "train_e2e": ("flash_attention", "flash_attention_bwd"),
+                    "fabric_parallel_demo": ("flash_attention", "mac_batch")}
+EXAMPLES_LOG_DIR = os.path.join("build", "examples")
+
+
+def phase_examples(smi, timeout=300):
+    """``repro_torch.examples``, each at its default size on the card
+    (``--device cuda``, the default): the six that start no process run
+    here, each's ``main`` with the launch counts zeroed before it and read
+    after it; the fabric demo (four ranks from a forkserver, which
+    re-import the main module) runs as ``python -m
+    repro_torch.examples.fabric_parallel_demo`` and reports its ranks'
+    launches. Each example raises on a failed check; each must end with
+    its ``... OK`` line and launch the kernels of its path. The output of
+    each is kept in ``build/examples/<name>.log``. → the launches."""
+    import ast
+    import contextlib
+    import importlib
+    import io
+    os.makedirs(EXAMPLES_LOG_DIR, exist_ok=True)
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    recs, launches = {}, {}
+    for name in EXAMPLES_IN_PROCESS:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        ops.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                mod.main([])
+        finally:
+            with open(os.path.join(EXAMPLES_LOG_DIR, f"{name}.log"), "w") as f:
+                f.write(buf.getvalue())
+        n = {k: v for k, v in ops.LAUNCHES.snapshot().items() if v}
+        recs[name] = dict(wall_s=time.perf_counter() - t0, launches=n,
+                          last=buf.getvalue().strip().splitlines()[-1])
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([os.environ["PYTHONPATH"]]
+                                      if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.examples.fabric_parallel_demo"],
+                       env=env, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    with open(os.path.join(EXAMPLES_LOG_DIR, "fabric_parallel_demo.log"), "w") as f:
+        f.write(r.stdout + r.stderr)
+    check(r.returncode == 0, f"examples: fabric_parallel_demo exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    line = next(x for x in r.stdout.splitlines() if x.startswith("kernel launches"))
+    n = {k: v for k, v in ast.literal_eval(line.split(":", 1)[1].strip()).items() if v}
+    recs["fabric_parallel_demo"] = dict(wall_s=time.perf_counter() - t0, launches=n,
+                                        last=r.stdout.strip().splitlines()[-1])
+    for k, v in n.items():
+        launches[k] = launches.get(k, 0) + v
+    for name, rec in recs.items():
+        check(rec["last"] == f"{name} OK", f"examples: {name} ended {rec['last']!r}")
+        missing = [k for k in EXAMPLE_LAUNCHES[name] if not rec["launches"].get(k)]
+        check(not missing, f"examples: {name} never launched {missing}")
+    emit(phase="examples", card=smi, examples=recs, launches=launches,
+         wall_s=time.perf_counter() - t_phase)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # ipc: the paper's word count over the six transports
 # ---------------------------------------------------------------------------
 
@@ -2060,12 +2296,12 @@ def proc_replicas(cfg, smi, launches, n_clients=12, max_new=16):
     replica's child under 4 client threads: every call completes correctly
     or raises a typed error, ``FleetSupervisor(target=2)`` brings the
     replica back, and tokens after the restart still match. Then
-    everything closes: no ``mpk_`` segment and no child is left."""
+    everything closes: no ``mpkt_`` segment and no child is left."""
     import functools
     import multiprocessing
     import signal
 
-    from repro_torch.core import ServiceGateway, framing, transports
+    from repro_torch.core import ServiceGateway, framing, procwire, transports
     from repro_torch.core.gateway import REPLICA_ACTIVE, FleetSupervisor
     from repro_torch.core.transports import TransportError
     from repro_torch.kernels import ops
@@ -2248,7 +2484,7 @@ def proc_replicas(cfg, smi, launches, n_clients=12, max_new=16):
     while time.monotonic() < deadline:
         kids = multiprocessing.active_children()
         segs = [f for f in os.listdir("/dev/shm")
-                if f.startswith(f"mpk_{os.getpid()}_")]
+                if f.startswith(f"{procwire.SEGMENT_PREFIX}{os.getpid()}_")]
         if not kids and not segs:
             break
         time.sleep(0.1)
@@ -3411,14 +3647,25 @@ def kernels_line(cfg, launches, err, attn_inputs):
                     graph_ms=graph_ms(turn), earlier_graph_ms=graph_ms(earlier_turn),
                     plain_ms=cold_ms(plain, inputs, 1), bound_ms=b, bound_by=by)
 
+    def copyplane_times(one, two, plain, args, nbytes, ops):
+        """The legacy copy plane's two-launch MAC against the one-launch
+        kernel at a copyplane phase's shape."""
+        check(_same(two(*args), plain(*args)) and _same(one(*args), plain(*args)),
+              f"{two.__name__} at the copyplane shape differs from plain")
+        b, by = bound(nbytes, ops, "f32")
+        return dict(ms=cuda_ms(lambda: two(*args), 100),
+                    one_launch_ms=cuda_ms(lambda: one(*args), 100),
+                    plain_ms=cuda_ms(lambda: plain(*args), 5), bound_ms=b, bound_by=by)
+
     # mac_batch: the batch envelope's 8 one-row frames
     st = _stack(8, 1, gen)
     check(_same(mg.mac_batch_cuda(st, tag), mg.mac_batch_plain(st, tag)),
           "mac_batch at the envelope's shape differs from plain")
     stacks = [(_stack(64, 1024, gen), tag) for _ in range(4)]
+    batch_plain_ms = cuda_ms(lambda: mg.mac_batch_plain(st, tag), 20)
     row("mac_batch", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:153",
         "(8, 1, 128) uint32", cuda_ms(lambda: mg.mac_batch_cuda(st, tag), 200),
-        cuda_ms(lambda: mg.mac_batch_plain(st, tag), 20), 8 * 512 + 32,
+        batch_plain_ms, 8 * 512 + 32,
         2 * 8 * 128, "f32", None,
         **launch_times("mac_batch", lambda: mg.mac_batch_cuda(st, tag),
                        lambda: mg._mac_batch_two_pass(st, tag)),
@@ -3427,6 +3674,17 @@ def kernels_line(cfg, launches, err, attn_inputs):
                                    mg.mac_batch_plain, stacks, 64 * 1024 * 512 + 64 * 4,
                                    2 * 64 * 1024 * 128)))
     del stacks
+    # the legacy copy plane's mac_batch (the two-launch design): the same
+    # envelope shape, and the copyplane's 4 frames of a 1 MiB payload
+    big_st = _stack(4, 2048, gen)
+    row("mac_batch_two_pass", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:153",
+        "(8, 1, 128) uint32", cuda_ms(lambda: mg._mac_batch_two_pass(st, tag), 200),
+        batch_plain_ms, 8 * 512 + 32, 2 * 8 * 128, "f32", None,
+        plane="legacy copy plane (framing.ZERO_COPY = False)",
+        at_copyplane_1MiB_k4=dict(shape="(4, 2048, 128) uint32", **copyplane_times(
+            mg.mac_batch_cuda, mg._mac_batch_two_pass, mg.mac_batch_plain,
+            (big_st, tag), 4 * 2048 * 512 + 16, 2 * 4 * 2048 * 128)))
+    del big_st
 
     # the streaming seal of a one-row frame: init, update, finalize
     h = mg.mac_init_state_cuda(tag, "cuda")
@@ -3437,9 +3695,10 @@ def kernels_line(cfg, launches, err, attn_inputs):
         "f32", cuda_ms(lambda: torch.full((128,), 7, dtype=torch.int32,
                                            device="cuda"), 200))
     blocks = [(h, _u32(65536, gen)) for _ in range(4)]
+    update_plain_ms = cuda_ms(lambda: mg.mac_update_plain(h, blk), 50)
     row("mac_update", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:241",
         "(1, 128) uint32 block", cuda_ms(lambda: mg.mac_update_cuda(h, blk), 200),
-        cuda_ms(lambda: mg.mac_update_plain(h, blk), 50), 3 * 512, 2 * 128,
+        update_plain_ms, 3 * 512, 2 * 128,
         "f32", None,
         **launch_times("mac_update", lambda: mg.mac_update_cuda(h, blk),
                        lambda: mg._mac_update_two_pass(h, blk)),
@@ -3448,6 +3707,17 @@ def kernels_line(cfg, launches, err, attn_inputs):
                                         mg.mac_update_plain, blocks, 65536 * 512 + 2 * 512,
                                         2 * 65536 * 128)))
     del blocks
+    # the legacy copy plane's mac_update (the two-launch design): a one-row
+    # block, and the copyplane's 1 MiB payload (2048 rows, one block)
+    big_blk = _u32(2048, gen)
+    row("mac_update_two_pass", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:241",
+        "(1, 128) uint32 block", cuda_ms(lambda: mg._mac_update_two_pass(h, blk), 200),
+        update_plain_ms, 3 * 512, 2 * 128, "f32", None,
+        plane="legacy copy plane (framing.ZERO_COPY = False)",
+        at_copyplane_1MiB=dict(shape="(2048, 128) uint32 block", **copyplane_times(
+            mg.mac_update_cuda, mg._mac_update_two_pass, mg.mac_update_plain,
+            (h, big_blk), 2048 * 512 + 2 * 512, 2 * 2048 * 128)))
+    del big_blk
     row("mac_finalize", "mpk_guard.cu", "src/repro/kernels/mpk_guard.py:271",
         "(128,) uint32", cuda_ms(lambda: mg.mac_finalize_cuda(h), 200),
         cuda_ms(lambda: mg.mac_finalize_plain(h), 50), 516, 2 * 128, "f32", None)
@@ -3900,6 +4170,8 @@ def main():
     counts, attn_inputs = phase_serve(llama, sessions=True)
     add(counts)
     add(phase_gateway(llama, smi))
+    add(phase_copyplane(smi))
+    add(phase_examples(smi))
     add(phase_proc(llama, smi))
     for cfg in (mamba, zamba, olmo, smollm, qwen3, mixtral, llava, grok):
         add(phase_serve(cfg, n_clients=8)[0])
@@ -3930,6 +4202,8 @@ def main():
     add(phase_train(zamba, steps=2, micro=2, remat=True, beside=dict(
         peak_mem_gb_micro1_no_remat=zamba_peak))[0])
     kernels = kernels_line(llama, launches, err, attn_inputs)
+    idle = [r["name"] for r in kernels if not r["launches"]]
+    check(not idle, f"kernels the main paths never launched: {idle}")
     del attn_inputs
     torch.cuda.empty_cache()
     phase_grad_parity(llama)

@@ -33,8 +33,14 @@ buffer (a :class:`FrameArena` slot or a transport's region), and
 bytes the framing layer writes, arena traffic, doorbell wakeups, key
 syncs), exact under concurrent writers.
 
-Left out of this port (see ROADMAP.md): the reference's ``ZERO_COPY =
-False`` legacy copy path.
+:data:`ZERO_COPY` (the reference's switch, True by default) set to False
+routes the build paths through the legacy copy plane, the A/B yardstick of
+the in-place one: :func:`build_frame` pads and heads its frame with two
+``torch.cat`` on the frame's device (:func:`_build_frame_legacy`), the
+transports and the gateway copy such frames into their region, ring slot
+or envelope, and the MACs run the earlier two-launch kernels
+(``ops.mac_update_two_pass`` / ``ops.mac_batch_two_pass``). The frames are
+bit-identical and verify the same either way; only a caller flips it.
 """
 from __future__ import annotations
 
@@ -52,6 +58,11 @@ from repro_torch.kernels.ref import MAC_PRIME, MASK32
 
 MAGIC = 0x4D504B4C            # "MPKL"
 LANES = 128
+
+# Benchmark switch (the reference's name and meaning): False selects the
+# legacy copy plane and the two-launch MAC kernels. Nothing sets it but a
+# caller; no error switches to it or away from it.
+ZERO_COPY = True
 
 DEADLINE_LANE = 10
 DEADLINE_US_MAX = 0xFFFFFFFF
@@ -78,8 +89,12 @@ class FrameError(ValueError):
 class FrameStats:
     """Process-wide framing + data-plane counters (the reference's
     ``FrameStats``). ``bytes_copied`` counts every payload byte the framing
-    layer writes (the seal's payload write, the guard's protected copy);
-    ``concat_calls`` stays 0 in the port (it has no concatenating path).
+    layer writes (the seal's payload write, the guard's protected copy,
+    and in the legacy copy plane its staging: the pad and header
+    concatenations, the packed and assembled frames of a legacy batch);
+    ``concat_calls`` counts the legacy plane's ``torch.cat`` calls on the
+    frame path, as the reference counts its ``np.concatenate`` calls: 0
+    with :data:`ZERO_COPY`, at least one a frame without it.
 
     The transports account their signalling here too: ``wakeups`` counts
     doorbell rings, ``doorbell_parks`` waits that parked after the bounded
@@ -175,10 +190,25 @@ def fast_mac(payload_u32: torch.Tensor, seed: int,
              block_rows: int = FAST_MAC_BLOCK_ROWS) -> int:
     """Payload MAC as init → one ``mac_update`` per ``block_rows`` rows →
     fold, on the payload's device (the reference's ``transports.fast_mac``).
-    Any split gives the same word."""
+    Any split gives the same word. Without :data:`ZERO_COPY` it is
+    :func:`legacy_fast_mac`."""
+    if not ZERO_COPY:
+        return legacy_fast_mac(payload_u32, seed, block_rows)
     h = ops.mac_init_state(seed & MASK32, payload_u32.device)
     for s in range(0, payload_u32.shape[0], block_rows):
         h = ops.mac_update(h, payload_u32[s:s + block_rows])
+    return _word(ops.mac_finalize(h))
+
+
+def legacy_fast_mac(payload_u32: torch.Tensor, seed: int,
+                    block_rows: int = FAST_MAC_BLOCK_ROWS) -> int:
+    """The legacy plane's payload MAC (the reference's ``legacy_fast_mac``):
+    the streaming MAC with each block through the earlier two-launch
+    ``mac_update`` (``ops.mac_update_two_pass``). The same word as
+    :func:`fast_mac`'s."""
+    h = ops.mac_init_state(seed & MASK32, payload_u32.device)
+    for s in range(0, payload_u32.shape[0], block_rows):
+        h = ops.mac_update_two_pass(h, payload_u32[s:s + block_rows])
     return _word(ops.mac_finalize(h))
 
 
@@ -201,7 +231,10 @@ def mac_batch(payloads: Sequence[torch.Tensor], seed: int) -> List[int]:
     are grouped by row count and each group is MAC'd by ``mac_batch``
     launches of at most ``mpk_guard.MAX_BATCH_FRAMES`` frames, so any N is
     taken, as the reference's numpy ``mac_batch`` takes it. A singleton
-    group is passed as a view (no stacking copy)."""
+    group is passed as a view (no stacking copy). Without
+    :data:`ZERO_COPY` each launch is the earlier two-launch design
+    (``ops.mac_batch_two_pass``), with the same words."""
+    launch = ops.mac_batch if ZERO_COPY else ops.mac_batch_two_pass
     out: List[Optional[int]] = [None] * len(payloads)
     groups: Dict[int, List[int]] = {}
     for i, p in enumerate(payloads):
@@ -215,7 +248,7 @@ def mac_batch(payloads: Sequence[torch.Tensor], seed: int) -> List[int]:
         else:
             stack = torch.stack([payloads[i].view(torch.int32) for i in idx]
                                 ).view(torch.uint32)
-        macs = ops.mac_batch(stack, seed & MASK32).cpu().tolist()
+        macs = launch(stack, seed & MASK32).cpu().tolist()
         for j, i in enumerate(idx):
             out[i] = int(macs[j])
     return out
@@ -386,10 +419,51 @@ def seal_prefilled(buf: torch.Tensor, nbytes: int, *, seed: int, seq: int,
     return rows
 
 
+def _on_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t``'s bytes, flat, on the frame's device and 4-byte aligned: a
+    staging copy (counted) only for bytes that lie elsewhere or start
+    misaligned, so the legacy plane's MACs run where its frame lies."""
+    if not t.numel():
+        return torch.empty(0, dtype=torch.uint8, device=dev)
+    raw = t.reshape(-1).view(torch.uint8)
+    if raw.device == dev and raw.storage_offset() % 4 == 0:
+        return raw
+    STATS.bump(bytes_copied=raw.numel())
+    return raw.to(dev, copy=True)
+
+
+def _build_frame_legacy(t: torch.Tensor, *, seed: int, seq: int,
+                        deadline_us: int, priority: int,
+                        dev: torch.device) -> torch.Tensor:
+    """The legacy copy pattern (the reference's ``_build_frame_legacy``):
+    a ``torch.cat`` for the pad when there is one, the MAC over the padded
+    payload, a ``torch.cat`` of the header row and the payload. The same
+    bytes as the in-place seal, with 3-4x its copies."""
+    meta = _meta_of(t)
+    raw = _on_device(t, dev)
+    pad = (-raw.numel()) % (LANES * 4)
+    if pad:
+        raw = torch.cat([raw, torch.zeros(pad, dtype=torch.uint8, device=dev)])
+        STATS.bump(concat_calls=1, bytes_copied=raw.numel())
+    payload = raw.view(torch.int32).reshape(-1, LANES)
+    mac = legacy_fast_mac(payload.view(torch.uint32), seed)
+    header = torch.from_numpy(_header(meta, seed, seq, mac, deadline_us,
+                                      priority).view(np.int32)).to(dev)
+    STATS.bump(concat_calls=1, frames_sealed=1,
+               bytes_copied=payload.numel() * 4 + LANES * 4)
+    return torch.cat([header[None], payload]).view(torch.uint32)
+
+
 def build_frame(arr, *, seed: int, seq: int, deadline_us: int = 0,
                 priority: int = 0, device="cuda") -> torch.Tensor:
-    """array → a fresh frame (header row + payload rows) on ``device``."""
+    """array → a fresh frame (header row + payload rows) on ``device``:
+    one buffer and one payload write, or without :data:`ZERO_COPY` the
+    legacy concatenations (the same bytes)."""
     t = _as_tensor(arr)
+    if not ZERO_COPY:
+        return _build_frame_legacy(t, seed=seed, seq=seq,
+                                   deadline_us=deadline_us, priority=priority,
+                                   dev=resolve(device))
     frame = torch.empty((frame_rows(_meta_of(t)["nbytes"]), LANES),
                         dtype=torch.uint32, device=resolve(device))
     seal_into(frame, t, seed=seed, seq=seq, deadline_us=deadline_us,
@@ -422,6 +496,42 @@ def seal_batch(arrays: Sequence, *, seed: int, start_seq: Optional[int] = None,
                             in zip(metas, seqs, macs, priorities)])
     STATS.bump(frames_sealed=len(frames),
                bytes_copied=sum(m["nbytes"] for m in metas))
+    return frames
+
+
+def seal_batch_legacy(arrays: Sequence, *, seed: int, seqs: Sequence[int],
+                      device="cuda") -> List[torch.Tensor]:
+    """The legacy plane's batch seal (the reference's ``seal_batch``, which
+    packs and assembles): each payload packed into a zeroed buffer when it
+    needs padding (a view when it does not), the MACs of one
+    :func:`mac_batch` pass, then each frame assembled into a fresh buffer
+    behind its header. Bit-identical to :func:`seal_batch`'s frames; the
+    transports and the gateway copy them into their slots or envelopes."""
+    dev = resolve(device)
+    packed = []
+    for a in arrays:
+        t = _as_tensor(a)
+        meta = _meta_of(t)
+        raw = _on_device(t, dev)
+        rows = frame_rows(meta["nbytes"]) - 1
+        if raw.numel() % (LANES * 4):
+            payload = torch.zeros((rows, LANES), dtype=torch.uint32, device=dev)
+            payload.reshape(-1).view(torch.uint8)[:raw.numel()].copy_(raw)
+            STATS.bump(bytes_copied=raw.numel())
+        else:
+            payload = raw.view(torch.uint32).reshape(rows, LANES)
+        packed.append((payload, meta))
+    macs = mac_batch([p for p, _ in packed], seed)
+    frames = []
+    for payload, _ in packed:
+        frame = torch.empty((payload.shape[0] + 1, LANES), dtype=torch.uint32,
+                            device=dev)
+        frame[1:].copy_(payload)
+        frames.append(frame)
+    _write_headers(frames, [_header(m, seed, q, mac) for (_, m), q, mac
+                            in zip(packed, seqs, macs)])
+    STATS.bump(frames_sealed=len(frames),
+               bytes_copied=sum(p.numel() * 4 for p, _ in packed))
     return frames
 
 

@@ -587,8 +587,13 @@ def _seal_envelope(route4, arr, *, seed: int, seq: int, device,
     """``[4 route words] + sealed frame`` assembled in ONE uint8 tensor on
     ``device`` — the frame is sealed in place behind the route words
     (``framing.seal_into``: the payload written once, ``fast_mac`` over
-    it in place, the header last)."""
+    it in place, the header last). Without ``framing.ZERO_COPY`` the
+    frame is built apart and concatenated behind the route words."""
     t = _payload(arr)
+    if not framing.ZERO_COPY:
+        frame = framing.build_frame(t, seed=seed, seq=seq, device=device,
+                                    deadline_us=deadline_us, priority=priority)
+        return _join([np.array(route4, "<u4").view(np.uint8), frame], device)
     rows = framing.frame_rows(t.numel() * t.element_size())
     env = torch.empty(_ROUTE_BYTES + rows * framing.LANES * 4,
                       dtype=torch.uint8, device=device)
@@ -2434,40 +2439,56 @@ class GatewayClient:
                 k = counts.get(service, 0)
                 seqs.append((chans[service].seq + k) & 0xFFFFFFFF)
                 counts[service] = k + 1
-            rows_list = [framing.frame_rows(_frame_nbytes(p)) for _, p in items]
-            total = _ROUTE_BYTES + sum(
-                _ROUTE_BYTES + r * framing.LANES * 4 for r in rows_list)
+            if framing.ZERO_COPY:
+                rows_list = [framing.frame_rows(_frame_nbytes(p))
+                             for _, p in items]
+                total = _ROUTE_BYTES + sum(
+                    _ROUTE_BYTES + r * framing.LANES * 4 for r in rows_list)
 
-            def fill(dst, items=items, seqs=seqs, tokens=tokens,
-                     rows_list=rows_list, chans=chans, dl_us=dl_us,
-                     priorities=priorities):
-                words = dict(zip((0, 4, 8, 12), _scatter_route(
-                    self.cid, len(items)).view("<u4").tolist()))
-                ofs = _ROUTE_BYTES
-                groups: Dict[str, list] = {}
-                for (service, p), seq, token, rows, du, pr in zip(
-                        items, seqs, tokens, rows_list, dl_us, priorities):
+                def fill(dst, items=items, seqs=seqs, tokens=tokens,
+                         rows_list=rows_list, chans=chans, dl_us=dl_us,
+                         priorities=priorities):
+                    words = dict(zip((0, 4, 8, 12), _scatter_route(
+                        self.cid, len(items)).view("<u4").tolist()))
+                    ofs = _ROUTE_BYTES
+                    groups: Dict[str, list] = {}
+                    for (service, p), seq, token, rows, du, pr in zip(
+                            items, seqs, tokens, rows_list, dl_us, priorities):
+                        chan = chans[service]
+                        words.update({ofs: GW_MAGIC, ofs + 4: chan.sid,
+                                      ofs + 8: token, ofs + 12: 0})
+                        body = ofs + _ROUTE_BYTES
+                        buf = dst[body: body + rows * framing.LANES * 4] \
+                            .view(torch.uint32).reshape(rows, framing.LANES)
+                        groups.setdefault(service, []).append(
+                            (buf, p, seq, du, pr))
+                        ofs = body + rows * framing.LANES * 4
+                    _write_words(dst, words)
+                    for service, members in groups.items():
+                        framing.seal_into_batch(
+                            [b for b, _, _, _, _ in members],
+                            [p for _, p, _, _, _ in members],
+                            seed=chans[service].seed,
+                            seqs=[q for _, _, q, _, _ in members],
+                            deadlines_us=[d for _, _, _, d, _ in members],
+                            priorities=[r for _, _, _, _, r in members])
+
+                # mpklint: disable=MPK002 reason=client lock IS the per-session serializer (spec: sessions are serial per client)
+                raw = self._session.request_into(total, fill, timeout=timeout)
+            else:
+                # the legacy copy plane: each frame built apart, then joined
+                parts = [_scatter_route(self.cid, len(items))]
+                for (service, p), seq, token, du, pr in zip(
+                        items, seqs, tokens, dl_us, priorities):
                     chan = chans[service]
-                    words.update({ofs: GW_MAGIC, ofs + 4: chan.sid,
-                                  ofs + 8: token, ofs + 12: 0})
-                    body = ofs + _ROUTE_BYTES
-                    buf = dst[body: body + rows * framing.LANES * 4] \
-                        .view(torch.uint32).reshape(rows, framing.LANES)
-                    groups.setdefault(service, []).append(
-                        (buf, p, seq, du, pr))
-                    ofs = body + rows * framing.LANES * 4
-                _write_words(dst, words)
-                for service, members in groups.items():
-                    framing.seal_into_batch(
-                        [b for b, _, _, _, _ in members],
-                        [p for _, p, _, _, _ in members],
-                        seed=chans[service].seed,
-                        seqs=[q for _, _, q, _, _ in members],
-                        deadlines_us=[d for _, _, _, d, _ in members],
-                        priorities=[r for _, _, _, _, r in members])
-
-            # mpklint: disable=MPK002 reason=client lock IS the per-session serializer (spec: sessions are serial per client)
-            raw = self._session.request_into(total, fill, timeout=timeout)
+                    parts.append(np.array([GW_MAGIC, chan.sid, token, 0], "<u4")
+                                 .view(np.uint8))
+                    parts.append(framing.build_frame(
+                        p, seed=chan.seed, seq=seq, deadline_us=du, priority=pr,
+                        device=self.gw.device))
+                # mpklint: disable=MPK002 reason=client lock IS the per-session serializer (spec: sessions are serial per client)
+                raw = self._session.request(_join(parts, self.gw.device),
+                                            timeout=timeout)
             hb = _HostBytes(raw)
             route = _response_route(hb)
             if route[1] == _ERR:            # whole-envelope failure: no item
@@ -2516,24 +2537,34 @@ class GatewayClient:
             # transport (the request region on mpklink): route words + N
             # frames sealed in place with ONE batched MAC pass
             ps = [_payload(p) for p in payloads]
-            rows_list = [framing.frame_rows(_frame_nbytes(p)) for p in ps]
-            env_nbytes = _ROUTE_BYTES + sum(
-                r * framing.LANES * 4 for r in rows_list)
+            if framing.ZERO_COPY:
+                rows_list = [framing.frame_rows(_frame_nbytes(p)) for p in ps]
+                env_nbytes = _ROUTE_BYTES + sum(
+                    r * framing.LANES * 4 for r in rows_list)
 
-            def fill(dst, ps=ps, rows_list=rows_list, chan=chan):
-                dst[:_ROUTE_BYTES].copy_(torch.from_numpy(
-                    _batch_route(chan.sid, self.cid, n)))
-                bufs, ofs = [], _ROUTE_BYTES
-                for r in rows_list:
-                    bufs.append(dst[ofs: ofs + r * framing.LANES * 4]
-                                .view(torch.uint32).reshape(r, framing.LANES))
-                    ofs += r * framing.LANES * 4
-                framing.seal_into_batch(
-                    bufs, ps, seed=chan.seed,
-                    seqs=[chan.seq + i for i in range(n)])
+                def fill(dst, ps=ps, rows_list=rows_list, chan=chan):
+                    dst[:_ROUTE_BYTES].copy_(torch.from_numpy(
+                        _batch_route(chan.sid, self.cid, n)))
+                    bufs, ofs = [], _ROUTE_BYTES
+                    for r in rows_list:
+                        bufs.append(dst[ofs: ofs + r * framing.LANES * 4]
+                                    .view(torch.uint32).reshape(r, framing.LANES))
+                        ofs += r * framing.LANES * 4
+                    framing.seal_into_batch(
+                        bufs, ps, seed=chan.seed,
+                        seqs=[chan.seq + i for i in range(n)])
 
-            # mpklint: disable=MPK002 reason=client lock IS the per-session serializer (spec: sessions are serial per client)
-            raw = self._session.request_into(env_nbytes, fill)
+                # mpklint: disable=MPK002 reason=client lock IS the per-session serializer (spec: sessions are serial per client)
+                raw = self._session.request_into(env_nbytes, fill)
+            else:
+                # the legacy copy plane: the frames sealed apart, then joined
+                frames = framing.seal_batch_legacy(
+                    ps, seed=chan.seed, seqs=[chan.seq + i for i in range(n)],
+                    device=self.gw.device)
+                env = _join([_batch_route(chan.sid, self.cid, n)] + frames,
+                            self.gw.device)
+                # mpklint: disable=MPK002 reason=client lock IS the per-session serializer (spec: sessions are serial per client)
+                raw = self._session.request(env)
             hb = _HostBytes(raw)
             route = _response_route(hb)
             if route[1] == _ERR:            # whole-batch failure: no item
@@ -2610,9 +2641,17 @@ class GatewayClient:
                     deadline_us=deadline_us, priority=priority)
 
             try:
-                # mpklint: disable=MPK002 reason=client lock IS the per-session serializer (spec: sessions are serial per client)
-                raw = self._session.request_into(env_nbytes, fill,
-                                                 timeout=timeout)
+                if framing.ZERO_COPY:
+                    # mpklint: disable=MPK002 reason=client lock IS the per-session serializer (spec: sessions are serial per client)
+                    raw = self._session.request_into(env_nbytes, fill,
+                                                     timeout=timeout)
+                else:                   # the legacy copy plane's envelope
+                    env = _seal_envelope(
+                        [GW_MAGIC, chan.sid, self.cid, token], p,
+                        seed=chan.seed, seq=chan.seq, device=self.gw.device,
+                        deadline_us=deadline_us, priority=priority)
+                    # mpklint: disable=MPK002 reason=client lock IS the per-session serializer (spec: sessions are serial per client)
+                    raw = self._session.request(env, timeout=timeout)
             except ResponseTimeout as e:
                 # a wire wait cut short by the call's own budget is the
                 # budget running out, wherever the request got to: typed

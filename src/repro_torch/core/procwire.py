@@ -36,7 +36,9 @@ Process model:
   :class:`HandlerNotPicklable` before any child starts; nothing carries on
   in-process in its place. Locks in a snapshot arrive as fresh locks.
 * **Segments** are created by the client (parent) as POSIX shared memory
-  named ``mpk_<pid>_<hex8>``; the parent is the owner and its ``close()``
+  named ``mpkt_<pid>_<hex8>`` (:data:`SEGMENT_PREFIX`; the reference's
+  segments are ``mpk_*``, so a sweep of either package's names never
+  touches the other's); the parent is the owner and its ``close()``
   unlinks it (idempotently). The child receives the segment's file
   descriptor and maps it; it never attaches by name, so Python's resource
   tracker sees the segment once, from its owner.
@@ -118,6 +120,7 @@ PROC_MAGIC = 0x4D504B50         # "MPKP": process-backed segment marker
 PROC_VERSION = 1
 PROC_CTRL_WORDS = 32            # control block size (u32 words)
 PROC_SLOT_WORDS = 16            # per-slot header size (u32 words)
+SEGMENT_PREFIX = "mpkt_"        # the port's segments: mpkt_<pid>_<hex8>
 
 # control-block word indices
 _W_MAGIC, _W_VERSION, _W_STOP, _W_SYNC_SEQ, _W_SYNC_ACK, _W_PKRU_LO, \
@@ -326,7 +329,7 @@ class _ShmSegment:
 
     def __init__(self, nwords: int):
         from multiprocessing import shared_memory
-        name = f"mpk_{os.getpid()}_{os.urandom(4).hex()}"
+        name = f"{SEGMENT_PREFIX}{os.getpid()}_{os.urandom(4).hex()}"
         self.shm = shared_memory.SharedMemory(
             name=name, create=True, size=nwords * 4)
         self.name = self.shm.name

@@ -71,8 +71,13 @@ batch-envelope service steps (``MPKLinkSession``'s verify → handle → seal
 with the frame's lane-10 deadline and lane-12 priority published through
 ``core.gateway``).
 
-Not ported (see ROADMAP.md): the reference's ``legacy_fast_mac`` and the
-``framing.ZERO_COPY = False`` copy path. The process transports are in
+``framing.ZERO_COPY = False`` restores the legacy copy plane on mpklink
+and mpklink_opt (the reference's A/B yardstick): each frame is built by
+``framing.build_frame``'s concatenations (a batch by
+``framing.seal_batch_legacy``) and then copied into the region or ring
+slot, and the MACs run the earlier two-launch kernels
+(:func:`legacy_fast_mac`). Frames are bit-identical, so the two planes
+share one session and its sequence. The process transports are in
 :mod:`repro_torch.core.procwire`.
 """
 from __future__ import annotations
@@ -101,7 +106,7 @@ from repro_torch.core.domains import (AccessViolation, KeyRegistry, READ, WRITE,
 from repro_torch.device import resolve
 # the streaming MAC lives in framing (its seal path); it is re-exported
 # here, where the reference keeps it
-from repro_torch.core.framing import fast_mac  # noqa: F401
+from repro_torch.core.framing import fast_mac, legacy_fast_mac  # noqa: F401
 
 Handler = Callable[[torch.Tensor], object]
 
@@ -214,6 +219,21 @@ def _raw(payload) -> torch.Tensor:
     """A payload (a tensor on any device, or an array) as its flat uint8
     bytes, where it lies."""
     return _as_tensor(payload).reshape(-1).view(torch.uint8)
+
+
+def _seal_slots(bufs: Sequence[torch.Tensor], payloads, seed: int,
+                seqs: Sequence[int]) -> List[int]:
+    """Seal a ring batch into its arena slots → rows used per frame: in
+    place with one ``mac_batch`` pass per row count, or in the legacy copy
+    plane packed and assembled apart (``framing.seal_batch_legacy``) and
+    then copied into the slots."""
+    if framing.ZERO_COPY:
+        return framing.seal_into_batch(bufs, payloads, seed=seed, seqs=seqs)
+    frames = framing.seal_batch_legacy(payloads, seed=seed, seqs=seqs,
+                                       device=bufs[0].device)
+    for buf, frame in zip(bufs, frames):
+        buf[:frame.shape[0]].copy_(frame)
+    return [f.shape[0] for f in frames]
 
 
 def _nbytes(payload) -> int:
@@ -1493,8 +1513,13 @@ class MPKLinkSession(Session):
         rows = framing.frame_rows(resp.numel())
         if self._region_resp.shape[0] < rows:
             self._region_resp = self._new_region(rows)
-        framing.seal_into(self._region_resp, resp, seed=self.seed,
-                          seq=self._seq)
+        if framing.ZERO_COPY:
+            framing.seal_into(self._region_resp, resp, seed=self.seed,
+                              seq=self._seq)
+        else:                                      # the legacy copy plane
+            self._region_resp[:rows].copy_(framing.build_frame(
+                resp, seed=self.seed, seq=self._seq,
+                device=self._region_resp.device))
         self._bump_sync()                          # response-side key sync
         self._respond(rows)
 
@@ -1528,6 +1553,10 @@ class MPKLinkSession(Session):
         self._check_usable()
         rows = framing.frame_rows(_nbytes(payload))
         self._grow_req(rows)
+        if not framing.ZERO_COPY:       # built apart, copied in chunk by chunk
+            frame = framing.build_frame(payload, seed=self.seed, seq=self._seq,
+                                        device=self._region_req.device)
+            return self._exchange(rows, legacy_frame=frame, timeout=timeout)
         # the seal lands in the region: one write of the payload, the MAC
         # over it in place, the header last
         framing.seal_into(self._region_req, payload, seed=self.seed,
@@ -1542,6 +1571,11 @@ class MPKLinkSession(Session):
         then pad-zeroed, MAC'd in place and headed
         (``framing.seal_prefilled``)."""
         self._check_usable()
+        if not framing.ZERO_COPY:       # the legacy plane fills a fresh buffer
+            buf = torch.empty(nbytes, dtype=torch.uint8,
+                              device=self._region_req.device)
+            fill(buf)
+            return self.request(buf, timeout=timeout)
         rows = framing.frame_rows(nbytes)
         self._grow_req(rows)
         fill(self._region_req[1:rows].reshape(-1).view(torch.uint8)[:nbytes])
@@ -1549,14 +1583,19 @@ class MPKLinkSession(Session):
                                seq=self._seq)
         return self._exchange(rows, timeout=timeout)
 
-    def _exchange(self, rows: int,
+    def _exchange(self, rows: int, legacy_frame: Optional[torch.Tensor] = None,
                   timeout: Optional[float] = None) -> torch.Tensor:
         """The chunk-sync publish loop + bounded response wait + response
-        guard, shared by request() / request_into()."""
+        guard, shared by request() / request_into(). A ``legacy_frame``
+        (the legacy copy plane's) is copied into the region a chunk at a
+        time, before that chunk's key sync."""
         eff = self.transport.timeout if timeout is None else timeout
         chunk_rows = max(1, self.chunk // (framing.LANES * 4))
         self._resp_flag = False
         for s in range(0, rows, chunk_rows):
+            if legacy_frame is not None:
+                e = min(rows, s + chunk_rows)
+                self._region_req[s:e].copy_(legacy_frame[s:e])
             self._req_rows = rows
             self._final = min(rows, s + chunk_rows) >= rows
             self._sync_key(self.key_client, WRITE)
@@ -1616,6 +1655,12 @@ class MPKLinkSession(Session):
         # backpressure BEFORE paying for a slot + seal + MAC
         self._await_credit(self._ring_obj(), None if timeout is None
                            else time.monotonic() + timeout)
+        if not framing.ZERO_COPY:       # built apart, copied into the slot
+            frame = framing.build_frame(payload, seed=self.seed, seq=self._seq,
+                                        device=self._region_req.device)
+            buf, = self._acquire_slots([frame.shape[0]])
+            buf[:frame.shape[0]].copy_(frame)
+            return self._stage_frame(buf[:frame.shape[0]], buf=buf)
         buf, = self._acquire_slots([framing.frame_rows(_nbytes(payload))])
         rows = framing.seal_into(buf, payload, seed=self.seed, seq=self._seq)
         return self._stage_frame(buf[:rows], buf=buf)
@@ -1701,8 +1746,8 @@ class MPKLinkSession(Session):
                     for slot in ok_slots:
                         self._finish(ring, slot, error=e)
                 continue
-            rows_list = framing.seal_into_batch(
-                rbufs, responses, seed=self.seed, seqs=[s.seq for s in ok_slots])
+            rows_list = _seal_slots(rbufs, responses, self.seed,
+                                    [s.seq for s in ok_slots])
             self._bump_sync()           # ONE response-side key sync a batch
             with ring.cv:
                 for slot, rb, rows in zip(ok_slots, rbufs, rows_list):
@@ -1757,9 +1802,8 @@ class MPKLinkSession(Session):
             window = [_as_tensor(p) for p in payloads[start:start + cap]]
             bufs = self._acquire_slots(
                 [framing.frame_rows(_nbytes(p)) for p in window])
-            rows_list = framing.seal_into_batch(
-                bufs, window, seed=self.seed,
-                seqs=[self._seq + i for i in range(len(window))])
+            rows_list = _seal_slots(bufs, window, self.seed,
+                                    [self._seq + i for i in range(len(window))])
             tickets = [self._stage_frame(b[:r], buf=b)
                        for b, r in zip(bufs, rows_list)]
             self.flush()

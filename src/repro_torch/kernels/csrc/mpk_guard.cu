@@ -65,8 +65,9 @@
 // writing one word (the fold is linear too), a frame of one chunk is
 // finished by its block with the folded seed term, and a frame of many has
 // its own arrival counter, whose last block sums the frame's words.
-// The earlier designs stay, on no path of the port, as chip_smoke.py's
-// yardsticks: mpk_guard_copy_two_pass, mpk_mac_update_two_pass and
+// The earlier designs stay as chip_smoke.py's yardsticks, and the two MACs
+// as the legacy copy plane's (framing.ZERO_COPY = False):
+// mpk_guard_copy_two_pass, mpk_mac_update_two_pass and
 // mpk_mac_batch_two_pass (one thread per lane, 4-byte accesses, 64-row
 // chunks, and a second launch that sums the partials, serially per lane
 // in lane_finish).
@@ -492,8 +493,8 @@ int mpk_mac_update(const void* h, const void* block, void* counters, void* out,
 }
 
 // The earlier two-launch mac_batch (folded_chunks, then folded_finish):
-// partials: max(1, frames * ceil(rows / chunk)) words. chip_smoke.py's
-// yardstick only.
+// partials: max(1, frames * ceil(rows / chunk)) words. The legacy copy
+// plane's mac_batch and chip_smoke.py's yardstick.
 int mpk_mac_batch_two_pass(const void* stack, void* partials, void* macs,
                            long long frames, long long rows, long long chunk,
                            unsigned tag, void* stream) {
@@ -510,8 +511,8 @@ int mpk_mac_batch_two_pass(const void* stack, void* partials, void* macs,
 }
 
 // The earlier two-launch mac_update (lane_chunks, then lane_finish):
-// partials: max(1, ceil(rows / chunk)) * 128 words. chip_smoke.py's
-// yardstick only.
+// partials: max(1, ceil(rows / chunk)) * 128 words. The legacy copy
+// plane's mac_update and chip_smoke.py's yardstick.
 int mpk_mac_update_two_pass(const void* h, const void* block, void* partials, void* out,
                             long long rows, long long chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

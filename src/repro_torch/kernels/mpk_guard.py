@@ -24,8 +24,10 @@ current stream (it raises for anything the kernel does not take); each
 32-bit masking, see ``ref``). ``kernels.ops`` picks one by the tensor's
 device and counts the launches. Tags and expected MACs are Python ints.
 :func:`_guard_copy_two_pass`, :func:`_mac_batch_two_pass` and
-:func:`_mac_update_two_pass` are the earlier two-launch designs, kept only
-as yardsticks for ``chip_smoke.py``.
+:func:`_mac_update_two_pass` are the earlier two-launch designs:
+``chip_smoke.py`` times them as yardsticks, and the two MACs run the
+legacy copy plane (``framing.ZERO_COPY = False``, through
+``ops.mac_batch_two_pass`` / ``ops.mac_update_two_pass``).
 """
 from __future__ import annotations
 
@@ -225,8 +227,9 @@ def mac_batch_cuda(stack_u32: torch.Tensor, tag: int) -> torch.Tensor:
 
 def _mac_batch_two_pass(stack_u32: torch.Tensor, tag: int) -> torch.Tensor:
     """The earlier two-launch mac_batch (one thread per lane, 4-byte
-    accesses, a second launch for the sums). No path of the port calls it:
-    ``chip_smoke.py`` times it as the yardstick ``earlier_ms``."""
+    accesses, a second launch for the sums): the legacy copy plane's
+    ``mac_batch`` (``ops.mac_batch_two_pass``) and ``chip_smoke.py``'s
+    yardstick ``earlier_ms``."""
     _check_rows(stack_u32, 3, "mac_batch")
     frames, rows = stack_u32.shape[0], stack_u32.shape[1]
     if not 0 < frames <= MAX_BATCH_FRAMES:
@@ -281,8 +284,9 @@ def mac_update_cuda(h: torch.Tensor, block_u32: torch.Tensor) -> torch.Tensor:
 def _mac_update_two_pass(h: torch.Tensor, block_u32: torch.Tensor) -> torch.Tensor:
     """The earlier two-launch mac_update (one thread per lane, 4-byte
     accesses, a one-block second launch that sums the chunk partials
-    serially per lane). No path of the port calls it: ``chip_smoke.py``
-    times it as the yardstick ``earlier_ms``."""
+    serially per lane): the legacy copy plane's ``mac_update``
+    (``ops.mac_update_two_pass``) and ``chip_smoke.py``'s yardstick
+    ``earlier_ms``."""
     _check_state(h, block_u32)
     rows = block_u32.shape[0]
     dev = block_u32.device

@@ -27,7 +27,8 @@ from repro_torch.kernels import ssd_scan as _ss
 
 KERNELS = ("guard_copy", "mac_batch", "mac_init_state", "mac_update",
            "mac_finalize", "decode_attention", "flash_attention",
-           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
+           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
+           "mac_batch_two_pass", "mac_update_two_pass")
 
 
 class LaunchCounts:
@@ -127,6 +128,19 @@ def mac_batch(stack_u32: torch.Tensor, tag: int) -> torch.Tensor:
     return out
 
 
+def mac_batch_two_pass(stack_u32: torch.Tensor, tag: int) -> torch.Tensor:
+    """:func:`mac_batch` by the earlier two-launch kernel, the MAC of the
+    legacy copy plane (``framing.ZERO_COPY = False``); the same words."""
+    if _on_meta(stack_u32):
+        return _meta("mac_batch_two_pass", _mg.cost("mac_batch", stack_u32),
+                     _u32(stack_u32, stack_u32.shape[0]))
+    if not _on_cuda(stack_u32):
+        return _mg.mac_batch_plain(stack_u32, tag)
+    out = _mg._mac_batch_two_pass(stack_u32, tag)
+    LAUNCHES.bump("mac_batch_two_pass")
+    return out
+
+
 def mac_init_state(tag: int, device) -> torch.Tensor:
     """Fresh (128,) uint32 streaming-MAC state for ``tag`` on ``device``."""
     device = torch.device(device)
@@ -151,6 +165,19 @@ def mac_update(h: torch.Tensor, block_u32: torch.Tensor) -> torch.Tensor:
         return _mg.mac_update_plain(h, block_u32)
     out = _mg.mac_update_cuda(h, block_u32)
     LAUNCHES.bump("mac_update")
+    return out
+
+
+def mac_update_two_pass(h: torch.Tensor, block_u32: torch.Tensor) -> torch.Tensor:
+    """:func:`mac_update` by the earlier two-launch kernel, the MAC of the
+    legacy copy plane (``framing.ZERO_COPY = False``); the same state."""
+    if _on_meta(block_u32):
+        return _meta("mac_update_two_pass", _mg.cost("mac_update", block_u32),
+                     torch.empty_like(h))
+    if not _on_cuda(block_u32):
+        return _mg.mac_update_plain(h, block_u32)
+    out = _mg._mac_update_two_pass(h, block_u32)
+    LAUNCHES.bump("mac_update_two_pass")
     return out
 
 

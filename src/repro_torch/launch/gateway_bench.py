@@ -16,9 +16,10 @@ The reference's five sweeps, with its flags:
               ``call_batch`` against the lockstep baseline
               (:func:`run_batch_cell`);
   payload     one client pushing 64 KiB - 1 MiB payloads, lockstep and 4
-              in flight (:func:`run_payload_cell`). The reference A/Bs its
-              in-place seal against its legacy copy path; the port has only
-              the in-place one, so these cells have no legacy twin;
+              in flight, each cell in both planes (:func:`run_payload_cell`
+              sets ``framing.ZERO_COPY``): the legacy copy plane (pad and
+              header concatenations, the two-launch MACs) against the
+              in-place one, reported as ``zero_copy_speedup``;
   scatter     one client fanning one request to each of 4 services as
               sequential ``call()``s against one ``call_many`` envelope on
               ``workers`` in {0, 4} shards (:func:`run_scatter_cell`);
@@ -30,11 +31,13 @@ and the guard kernels run; on the CPU the kernels' plain versions run.
 Every cell prints one JSON line, with the ``os.cpu_count()`` of the host
 and the device's name: these are host-bound timings, and the reference's
 gates (ratios measured on another host) are reported, and enforced only on
-full runs as the reference does.
+full runs as the reference does; its zero-copy gate
+(``zero_copy_gate_mpklink_opt_1p5x``) is reported and never enforced.
 
 :func:`single_launches`, :func:`batch_launches`, :func:`scatter_launches`
 and :func:`envelope_syncs` give the guard-kernel launches and key syncs of
-one envelope of each kind from the code's structure (as
+one envelope of each kind from the code's structure, in either copy plane
+(``zero_copy=False``: the legacy plane's) (as
 ``launch.ipc_wordcount.lockstep_launches`` / ``lockstep_syncs`` do for a
 bare transport); the card run holds the counted launches to them.
 """
@@ -105,45 +108,66 @@ def _on_card(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def single_launches(req: int, resp: int, device) -> Dict[str, int]:
+# the MAC kernels of the legacy copy plane (framing.ZERO_COPY = False)
+LEGACY_KERNELS = {"mac_update": "mac_update_two_pass",
+                  "mac_batch": "mac_batch_two_pass"}
+
+
+def _plane(counts: Dict[str, int], zero_copy: bool) -> Dict[str, int]:
+    """``counts`` in the legacy copy plane when not ``zero_copy``: every
+    ``mac_update`` and ``mac_batch`` run by the earlier two-launch kernels
+    (``guard_copy`` and the streaming MAC's init and fold unchanged)."""
+    if zero_copy:
+        return counts
+    return {LEGACY_KERNELS.get(k, k): v for k, v in counts.items()}
+
+
+def single_launches(req: int, resp: int, device,
+                    zero_copy: bool = True) -> Dict[str, int]:
     """Guard-kernel launches of one ``call`` over an mpklink transport on
     the card: the client seals the frame (``fast_mac``) and the transport
     the envelope; the gateway's transport verifies the envelope and the
     gateway the frame (one ``guard_copy`` each), seals the response frame
     and its transport the response envelope; the client's transport and
-    the client verify them. None on the CPU."""
+    the client verify them. None on the CPU. ``zero_copy=False``: the
+    legacy copy plane's (the same seals, by the two-launch MAC kernels)."""
     if not _on_card(device):
         return {}
     env_req, env_resp = single_bytes(req, resp)
-    return _add(_seal_launches(req), _seal_launches(env_req),
-                _seal_launches(resp), _seal_launches(env_resp),
-                {"guard_copy": 4})
+    return _plane(_add(_seal_launches(req), _seal_launches(env_req),
+                       _seal_launches(resp), _seal_launches(env_resp),
+                       {"guard_copy": 4}), zero_copy)
 
 
 def batch_launches(req: Sequence[int], resp: Sequence[int],
-                   device) -> Dict[str, int]:
+                   device, zero_copy: bool = True) -> Dict[str, int]:
     """Guard-kernel launches of one ``call_batch``: the N frames are sealed
     (client), verified (gateway), the responses sealed (gateway) and
     verified (client) with one ``mac_batch`` launch per row count each;
-    the two envelopes are sealed and verified by the transport."""
+    the two envelopes are sealed and verified by the transport (in the
+    legacy copy plane, with ``zero_copy=False``, by the two-launch MAC
+    kernels)."""
     if not _on_card(device):
         return {}
     env_req, env_resp = batch_bytes(req, resp)
-    return _add(_seal_launches(env_req), _seal_launches(env_resp),
-                {"guard_copy": 2,
-                 "mac_batch": 2 * _mac_batch_launches(req)
-                 + 2 * _mac_batch_launches(resp)})
+    return _plane(_add(_seal_launches(env_req), _seal_launches(env_resp),
+                       {"guard_copy": 2,
+                        "mac_batch": 2 * _mac_batch_launches(req)
+                        + 2 * _mac_batch_launches(resp)}), zero_copy)
 
 
 def scatter_launches(items: Sequence[Tuple[str, int, int]],
-                     device) -> Dict[str, int]:
+                     device, zero_copy: bool = True) -> Dict[str, int]:
     """Guard-kernel launches of one ``call_many`` of (service, request
     bytes, response bytes) items: the client seals each service's frames
     and verifies its responses with ``mac_batch`` launches (one per row
     count of the group); the gateway verifies each item with its own
     ``guard_copy`` (the single-call pipeline) and seals each group's
     responses with ``mac_batch``; the transport seals and verifies the two
-    envelopes."""
+    envelopes. In the legacy copy plane (``zero_copy=False``) the client
+    builds each item's frame apart (one streaming MAC each, as the
+    reference's legacy ``call_many`` does), and every MAC runs the
+    two-launch kernels."""
     if not _on_card(device):
         return {}
     groups: Dict[str, Tuple[List[int], List[int]]] = {}
@@ -153,10 +177,13 @@ def scatter_launches(items: Sequence[Tuple[str, int, int]],
         g[1].append(resp)
     env_req, env_resp = scatter_bytes([r for _, r, _ in items],
                                       [r for _, _, r in items])
-    mb = sum(_mac_batch_launches(q) + 2 * _mac_batch_launches(r)
-             for q, r in groups.values())
-    return _add(_seal_launches(env_req), _seal_launches(env_resp),
-                {"guard_copy": 2 + len(items), "mac_batch": mb})
+    mb = sum(2 * _mac_batch_launches(r) for _, r in groups.values())
+    if zero_copy:
+        client = {"mac_batch": sum(_mac_batch_launches(q) for q, _ in groups.values())}
+    else:
+        client = _add(*(_seal_launches(req) for _, req, _ in items))
+    return _plane(_add(_seal_launches(env_req), _seal_launches(env_resp), client,
+                       {"guard_copy": 2 + len(items), "mac_batch": mb}), zero_copy)
 
 
 def envelope_syncs(tr, env_req: int) -> int:
@@ -321,39 +348,47 @@ def run_batch_cell(gw: ServiceGateway, service: str, in_flight: int,
 
 
 def run_payload_cell(gw: ServiceGateway, nbytes: int, reps: int,
-                     in_flight: int = 1) -> Dict:
+                     zero_copy: bool = True, in_flight: int = 1) -> Dict:
     """One client, one channel, a fixed ``nbytes`` payload: lockstep
-    ``call()`` (``in_flight=1``) or ``call_batch`` of ``in_flight``; the
-    framing counters give the bytes the framing layer wrote a request."""
+    ``call()`` (``in_flight=1``) or ``call_batch`` of ``in_flight``, with
+    the framing layer in the in-place plane (``zero_copy``) or the legacy
+    copy plane (``framing.ZERO_COPY`` set for the cell and restored after
+    it); the framing counters give the bytes copied and the concatenations
+    a request."""
     rng = np.random.default_rng(nbytes)
     payload = rng.integers(0, 256, size=nbytes, dtype=np.int64).astype(np.uint8)
-    client = gw.connect(f"bench-payload-{nbytes}-{in_flight}")
+    client = gw.connect(f"bench-payload-{nbytes}-{zero_copy}-{in_flight}")
     client.open("digest")
+    prev = framing.ZERO_COPY
+    framing.ZERO_COPY = zero_copy
+    try:
+        def drive():
+            if in_flight == 1:
+                client.call("digest", payload)
+            else:
+                client.call_batch("digest", [payload] * in_flight)
 
-    def drive():
-        if in_flight == 1:
-            client.call("digest", payload)
-        else:
-            client.call_batch("digest", [payload] * in_flight)
-
-    for _ in range(3):                      # warm-up / channel setup
-        drive()
-    st0 = framing.STATS.snapshot()
-    sync0 = getattr(gw.transport, "sync_count", 0)
-    lat: List[float] = []
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        tb = time.perf_counter()
-        drive()
-        lat.append(time.perf_counter() - tb)
-    wall = time.perf_counter() - t0
-    st1 = framing.STATS.snapshot()
-    sync1 = getattr(gw.transport, "sync_count", 0)
+        for _ in range(3):                  # warm-up / channel setup
+            drive()
+        st0 = framing.STATS.snapshot()
+        sync0 = getattr(gw.transport, "sync_count", 0)
+        lat: List[float] = []
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tb = time.perf_counter()
+            drive()
+            lat.append(time.perf_counter() - tb)
+        wall = time.perf_counter() - t0
+        st1 = framing.STATS.snapshot()
+        sync1 = getattr(gw.transport, "sync_count", 0)
+    finally:
+        framing.ZERO_COPY = prev
     macs = client.macs_verified
     client.close()
     total = reps * in_flight
     p50, p99 = _pcts(lat)
-    return {"service": "digest", "mode": "zero_copy", "payload_bytes": nbytes,
+    return {"service": "digest", "payload_bytes": nbytes,
+            "mode": "zero_copy" if zero_copy else "legacy",
             "in_flight": in_flight, "requests": total, "seconds": round(wall, 4),
             "throughput_rps": round(total / wall, 2) if wall > 0 else None,
             "mib_per_s": round(total * nbytes / wall / 2**20, 2)
@@ -551,20 +586,46 @@ def sweep_batch(transports, total_msgs, infer_msgs, engine_service,
 
 
 def sweep_payload(transports, sizes, reps, device="cuda") -> List[Dict]:
+    """Every (transport, size, in-flight) cell in the legacy copy plane and
+    the in-place one, as the reference's sweep runs them: the A/B is the
+    whole plane (copies and MAC kernels), with bit-identical frames."""
     results = []
     for name in transports:
-        gw = ServiceGateway(name, max_keys=256, device=device)
-        gw.register_service("digest", digest_handler)
-        gw.start()
-        try:
-            for nbytes in sizes:
-                for in_flight in (1, PAYLOAD_IN_FLIGHT):
-                    cell = run_payload_cell(gw, nbytes, reps, in_flight)
-                    cell["transport"] = name
-                    results.append(_emit("payload", cell, device))
-        finally:
-            gw.close()
+        for zero_copy in (False, True):
+            gw = ServiceGateway(name, max_keys=256, device=device)
+            gw.register_service("digest", digest_handler)
+            gw.start()
+            try:
+                for nbytes in sizes:
+                    for in_flight in (1, PAYLOAD_IN_FLIGHT):
+                        cell = run_payload_cell(gw, nbytes, reps, zero_copy,
+                                                in_flight)
+                        cell["transport"] = name
+                        results.append(_emit("payload", cell, device))
+            finally:
+                gw.close()
     return results
+
+
+def payload_speedup(payload_results) -> Dict[str, Optional[float]]:
+    """In-place over legacy requests/s a (transport, size, in-flight), keyed
+    ``"<transport>/<KiB>KiB/k<in_flight>"`` as the reference keys its
+    ``zero_copy_speedup``."""
+    by = {(r["transport"], r["payload_bytes"], r["in_flight"], r["mode"]): r
+          for r in payload_results}
+    return {f"{t}/{nb >> 10}KiB/k{k}": _ratio(r, by.get((t, nb, k, "legacy")))
+            for (t, nb, k, mode), r in sorted(by.items()) if mode == "zero_copy"}
+
+
+def zero_copy_gate(speedup: Dict[str, Optional[float]]) -> Optional[bool]:
+    """The reference's ``zero_copy_gate_mpklink_opt_1p5x``: every
+    mpklink_opt cell at ``PAYLOAD_IN_FLIGHT`` in flight at least 1.5x
+    (None without payload cells). Reported, never enforced here."""
+    if not speedup:
+        return None
+    opt = [v for key, v in speedup.items() if key.startswith("mpklink_opt/")
+           and key.endswith(f"/k{PAYLOAD_IN_FLIGHT}")]
+    return bool(opt) and None not in opt and min(opt) >= 1.5
 
 
 def sweep_scatter(transport, n_services, rounds, workers_list,
@@ -670,6 +731,7 @@ def main(argv=None):
     payload_results = [] if args.no_payload else sweep_payload(
         ["mpklink_opt"] if q else ["mpklink", "mpklink_opt"],
         PAYLOAD_SIZES[:2] if q else PAYLOAD_SIZES, 6 if q else 12, device)
+    zc_speedup = payload_speedup(payload_results)
     scatter_results = [] if args.no_scatter else sweep_scatter(
         "mpklink_opt", SCATTER_SERVICES, 12 if q else 30, [0, 4], device)
     fanin_results = [] if args.no_fanin else sweep_fanin(
@@ -680,6 +742,8 @@ def main(argv=None):
                        "wordcount_words": WORDS, "prompt_len": PROMPT_LEN,
                        "max_new": MAX_NEW},
               **summarize(results, batch_results, scatter_results, fanin_results),
+              "zero_copy_speedup": zc_speedup,
+              "zero_copy_gate_mpklink_opt_1p5x": zero_copy_gate(zc_speedup),
               "results": results, "batch_results": batch_results,
               "payload_results": payload_results,
               "scatter_results": scatter_results, "fanin_results": fanin_results}

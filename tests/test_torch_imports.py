@@ -112,3 +112,31 @@ def test_fabric_modules_import_without_jax_or_repro():
         assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}, path
     from repro_torch.launch import world
     assert world._CTX.get_start_method() == "forkserver"
+
+
+ANALYSIS_MODULES = tuple(f"repro_torch.analysis.{m}" for m in (
+    "engine", "rules_concurrency", "rules_protocol", "rules_spec", "__main__"))
+EXAMPLE_MODULES = tuple(f"repro_torch.examples.{m}" for m in (
+    "mpklink_demo", "gateway_demo", "chaos_demo", "quickstart", "serve_decode",
+    "train_e2e", "fabric_parallel_demo"))
+
+
+def test_analysis_and_examples_import_without_jax_or_repro():
+    """mpklint (pure stdlib: it imports no torch either) and the seven
+    examples are among the modules the probe imports with JAX and ``repro``
+    refused; each example has a ``main(argv=None)`` behind a ``__main__``
+    guard (the fabric demo's ranks re-import it as their main module)."""
+    names = set(_probe()[-2].split())
+    assert set(ANALYSIS_MODULES + EXAMPLE_MODULES) <= names
+    stdlib = set(sys.stdlib_module_names) | {"repro_torch"}
+    for mod in ANALYSIS_MODULES:
+        path = SRC / (mod.replace(".", "/") + ".py")
+        assert set(_imported_roots(path)) <= stdlib, path
+    for mod in EXAMPLE_MODULES:
+        path = SRC / (mod.replace(".", "/") + ".py")
+        tree = ast.parse(path.read_text())
+        assert any(isinstance(n, ast.FunctionDef) and n.name == "main"
+                   and n.args.args and n.args.args[0].arg == "argv"
+                   for n in tree.body), path
+        guard = tree.body[-1]
+        assert isinstance(guard, ast.If) and "__main__" in ast.unparse(guard.test), path

@@ -70,7 +70,8 @@ def _bytes(out) -> bytes:
 
 
 def _leftover_segments():
-    return [f for f in os.listdir("/dev/shm") if f.startswith("mpk_")]
+    return [f for f in os.listdir("/dev/shm")
+            if f.startswith(procwire.SEGMENT_PREFIX)]
 
 
 # ---------------------------------------------------------------------------
@@ -494,7 +495,7 @@ tr = ALL_TRANSPORTS["shm_proc"](echo, timeout=10.0, device="cpu")
 s = tr.connect()
 s.request(np.zeros(64, np.uint8))
 print("CYCLES-DONE", len([f for f in os.listdir('/dev/shm')
-                          if f.startswith(f'mpk_{os.getpid()}_')]),
+                          if f.startswith(f'mpkt_{os.getpid()}_')]),
       "PID", os.getpid())
 """
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -511,7 +512,7 @@ print("CYCLES-DONE", len([f for f in os.listdir('/dev/shm')
     # left (segments of other test processes running beside it are theirs)
     pid = r.stdout.split("PID")[1].split()[0]
     assert [f for f in _leftover_segments()
-            if f.startswith(f"mpk_{pid}_")] == []
+            if f.startswith(f"{procwire.SEGMENT_PREFIX}{pid}_")] == []
 
 
 # ---------------------------------------------------------------------------

@@ -82,7 +82,7 @@ def wordcount_factory():
 
 def proc_hygiene(module_name: str, settle: float = 10.0):
     """After a proc test module: this process owns no unreaped child, no
-    ``/dev/shm/mpk_<pid>_*`` segment, no open doorbell fd (the port's
+    ``/dev/shm/mpkt_<pid>_*`` segment (``procwire.SEGMENT_PREFIX``), no open doorbell fd (the port's
     ledger, ``procwire.open_doorbell_fds``) and no session still holding
     the slab it shares with a child (``procwire.open_slabs``). Teardowns
     that are still settling get ``settle`` seconds; then the module
@@ -96,7 +96,7 @@ def proc_hygiene(module_name: str, settle: float = 10.0):
     from repro_torch.core import procwire
 
     gc.collect()
-    mine = f"mpk_{os.getpid()}_"
+    mine = f"{procwire.SEGMENT_PREFIX}{os.getpid()}_"
     deadline = time.monotonic() + settle
     while True:
         procwire._sweep_deferred_closes()
