@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve
 from repro_torch.kernels import mpk_guard as _mg
 from repro_torch.kernels import ops
@@ -86,7 +87,7 @@ class FrameError(ValueError):
 # data-plane counters
 # ---------------------------------------------------------------------------
 
-class FrameStats:
+class FrameStats(tracing.ThreadShards):
     """Process-wide framing + data-plane counters (the reference's
     ``FrameStats``). ``bytes_copied`` counts every payload byte the framing
     layer writes (the seal's payload write, the guard's protected copy,
@@ -105,7 +106,9 @@ class FrameStats:
     never lose an increment; :meth:`snapshot` sums the shards, exact once
     the counting threads have quiesced. Shards of dead threads are folded
     into a retired base, so a process cycling many session threads does
-    not accumulate them. Reading a field attribute sums the shards too."""
+    not accumulate them. Reading a field attribute sums the shards too.
+    The shard registry is ``tracing.ThreadShards``, which the span
+    recorder shares."""
 
     _FIELDS = ("frames_sealed", "frames_sealed_inplace", "frames_verified",
                "views_returned", "bytes_copied", "concat_calls",
@@ -113,34 +116,20 @@ class FrameStats:
                "wakeups", "doorbell_parks", "key_syncs")
 
     def __init__(self):
-        self._rlock = threading.Lock()      # guards the shard registry only
-        self._local = threading.local()
-        self._shards: List[Tuple[threading.Thread, Dict[str, int]]] = []
+        super().__init__()
         self._retired: Dict[str, int] = dict.fromkeys(self._FIELDS, 0)
 
-    def _shard(self) -> Dict[str, int]:
-        d = getattr(self._local, "d", None)
-        if d is None:
-            d = dict.fromkeys(self._FIELDS, 0)
-            self._local.d = d
-            with self._rlock:
-                self._shards.append((threading.current_thread(), d))
-        return d
+    def _new_shard(self) -> Dict[str, int]:
+        return dict.fromkeys(self._FIELDS, 0)
 
-    def _fold_dead_locked(self) -> None:
-        live = []
-        for th, d in self._shards:
-            if th.is_alive():
-                live.append((th, d))
-            else:                       # no further bumps possible: fold
-                for f in self._FIELDS:
-                    self._retired[f] += d[f]
-        self._shards = live
+    def _retire(self, d: Dict[str, int]) -> None:
+        for f in self._FIELDS:
+            self._retired[f] += d[f]
 
     def bump(self, **deltas: int) -> None:
         """Add each delta to its counter (lock-free: a per-thread shard);
         unknown counter names raise KeyError."""
-        d = getattr(self._local, "d", None)
+        d = getattr(self._local, "s", None)
         if d is None:
             d = self._shard()
         for name, delta in deltas.items():
@@ -180,7 +169,8 @@ STATS = FrameStats()
 
 def _word(t: torch.Tensor) -> int:
     """A one-element uint32 tensor as a Python int (a host sync)."""
-    return int(t.cpu().tolist()[0])
+    with tracing.span("gateway.device_read"):
+        return int(t.cpu().tolist()[0])
 
 
 FAST_MAC_BLOCK_ROWS = 65536   # payload rows per mac_update launch of a seal
@@ -248,7 +238,9 @@ def mac_batch(payloads: Sequence[torch.Tensor], seed: int) -> List[int]:
         else:
             stack = torch.stack([payloads[i].view(torch.int32) for i in idx]
                                 ).view(torch.uint32)
-        macs = launch(stack, seed & MASK32).cpu().tolist()
+        macs = launch(stack, seed & MASK32)
+        with tracing.span("gateway.device_read"):
+            macs = macs.cpu().tolist()
         for j, i in enumerate(idx):
             out[i] = int(macs[j])
     return out
@@ -594,11 +586,15 @@ def verify_view(frame: torch.Tensor, *, seed: int, expect_seq=None,
     it with its route words); otherwise it is read here. Raises
     :class:`FrameError`."""
     _check_shape(frame)
-    header = frame[0].cpu().tolist() if header is None else list(header)
+    if header is None:
+        with tracing.span("gateway.device_read"):
+            header = frame[0].cpu().tolist()
+    else:
+        header = list(header)
     _precheck(header, seed, expect_seq)
     copy, _, ok = ops.guard_copy(frame[1:], seed & MASK32,
                                  _expected_mac(header, seed))
-    if not int(ok.cpu().tolist()[0]):
+    if not _word(ok):
         raise FrameError("MAC mismatch — payload or header tampered/truncated")
     out = unpack_payload(copy, _check_fields(header, frame.shape[0]))
     STATS.bump(frames_verified=1, views_returned=1,
@@ -615,8 +611,10 @@ def header_rows(frames: Sequence[torch.Tensor]) -> List[list]:
     one device-to-host copy."""
     if not frames:
         return []
-    return (torch.stack([f[0].view(torch.int32) for f in frames])
-            .cpu().numpy().view(np.uint32).tolist())
+    rows = torch.stack([f[0].view(torch.int32) for f in frames])
+    with tracing.span("gateway.device_read"):
+        rows = rows.cpu()
+    return rows.numpy().view(np.uint32).tolist()
 
 
 def verify_batch(frames: Sequence[torch.Tensor], *, seed: int,
@@ -798,7 +796,9 @@ def split_frames(flat_u32: torch.Tensor,
     if (not isinstance(flat_u32, torch.Tensor) or flat_u32.ndim != 2
             or flat_u32.shape[1] != LANES):
         raise FrameError("malformed frame concatenation — not lane-aligned")
-    words = flat_u32.view(torch.int32)[:, :4].cpu().numpy().view(np.uint32)
+    with tracing.span("gateway.device_read"):
+        words = flat_u32.view(torch.int32)[:, :4].cpu()
+    words = words.numpy().view(np.uint32)
     frames: List[torch.Tensor] = []
     row = 0
     while row < flat_u32.shape[0]:
@@ -826,12 +826,14 @@ def frame_rows(nbytes: int) -> int:
 def frame_deadline_us(frame: torch.Tensor) -> int:
     """The lane-10 deadline word (0 = none); meaningful only after the
     frame passed verification (the word is MAC-covered)."""
-    return int(frame[0, :PRIORITY_LANE + 1].cpu().tolist()[DEADLINE_LANE])
+    with tracing.span("gateway.device_read"):
+        return int(frame[0, :PRIORITY_LANE + 1].cpu().tolist()[DEADLINE_LANE])
 
 
 def frame_priority(frame: torch.Tensor) -> int:
     """The lane-12 priority word; meaningful only after verification."""
-    return int(frame[0, :PRIORITY_LANE + 1].cpu().tolist()[PRIORITY_LANE])
+    with tracing.span("gateway.device_read"):
+        return int(frame[0, :PRIORITY_LANE + 1].cpu().tolist()[PRIORITY_LANE])
 
 
 def deadline_to_us(remaining_s: Optional[float]) -> int:

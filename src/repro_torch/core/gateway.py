@@ -75,6 +75,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import framing
 from repro_torch.core.ca import CertificateAuthority, enroll
 from repro_torch.core.domains import (AccessViolation, DomainKey, KeyRegistry,
@@ -166,16 +167,25 @@ def current_priority() -> int:
     return getattr(_BUDGET, "priority", framing.PRIO_NORMAL)
 
 
+def current_call() -> Optional[int]:
+    """Id of the gateway call the calling thread is executing
+    (``tracing.call_id(cid, seq)`` of its frame), published beside its
+    priority while the span recorder is armed; None otherwise."""
+    return getattr(_BUDGET, "call", None)
+
+
 def _push_qos(identity: Optional[str], priority: int) -> tuple:
     prev = (getattr(_BUDGET, "identity", None),
-            getattr(_BUDGET, "priority", framing.PRIO_NORMAL))
+            getattr(_BUDGET, "priority", framing.PRIO_NORMAL),
+            getattr(_BUDGET, "call", None))
     _BUDGET.identity = identity
     _BUDGET.priority = priority
+    _BUDGET.call = tracing.current_call()
     return prev
 
 
 def _pop_qos(prev: tuple) -> None:
-    _BUDGET.identity, _BUDGET.priority = prev
+    _BUDGET.identity, _BUDGET.priority, _BUDGET.call = prev
 
 
 def push_context(deadline: Optional[float], priority: int) -> tuple:
@@ -653,7 +663,8 @@ class _HostBytes:
         """The bytes ``[ofs, ofs + n)`` (fewer past the end)."""
         if ofs < self._lo or ofs + n > self._lo + self._buf.size:
             self._lo = ofs
-            self._buf = self.raw[ofs:ofs + max(n, self.window)].cpu().numpy()
+            with tracing.span("gateway.device_read"):
+                self._buf = self.raw[ofs:ofs + max(n, self.window)].cpu().numpy()
         return self._buf[ofs - self._lo: ofs - self._lo + n]
 
     def words(self, ofs: int, n: int) -> List[int]:
@@ -1530,7 +1541,8 @@ class ServiceGateway:
         t0 = time.perf_counter()
         ok = False
         try:
-            resp = _as_frameable(svc.handler(payload))
+            with tracing.span("gateway.handler"):
+                resp = _as_frameable(svc.handler(payload))
             ok = True
         except HandlerCrash:
             # kills the transport service thread (by design) — record it,
@@ -2077,13 +2089,19 @@ class ServiceGateway:
     def _dispatch(self, req) -> torch.Tensor:
         """The transport handler: one envelope (uint8 bytes on the
         transport's device) → one response envelope. The route words and
-        the inner frame's header row reach the host in ONE copy."""
+        the inner frame's header row reach the host in ONE copy. A span
+        ``gateway.dispatch`` with the call's id."""
+        with tracing.span("gateway.dispatch"):
+            return self._dispatch_one(req)
+
+    def _dispatch_one(self, req) -> torch.Tensor:
         sid = 0
         try:
             raw = _payload(req).reshape(-1).view(torch.uint8)
             if raw.numel() < _ROUTE_BYTES:
                 raise framing.FrameError("short gateway envelope")
-            head = raw[:_HEAD_BYTES].cpu().numpy()
+            with tracing.span("gateway.device_read"):
+                head = raw[:_HEAD_BYTES].cpu().numpy()
             route = np.frombuffer(head[:_ROUTE_BYTES].tobytes(), "<u4").tolist()
             if route[0] == GW_BATCH_MAGIC:
                 return self._dispatch_batch(raw, route)
@@ -2115,6 +2133,7 @@ class ServiceGateway:
                 frame = body.view(torch.uint32).reshape(-1, framing.LANES)
                 hdr = np.frombuffer(head[_ROUTE_BYTES:].tobytes(),
                                     "<u4").tolist()
+                tracing.set_call(cid, hdr[2])
                 # MAC/seed/header verification first (expect_seq=None: the
                 # sequence check is downstream so an idempotent retry of an
                 # already-executed request can be answered from the dedup
@@ -2259,7 +2278,15 @@ class GatewayClient:
         ``priority`` (``framing.PRIO_HIGH`` / ``PRIO_NORMAL`` /
         ``PRIO_BULK``) is sealed into the frame's MAC-covered lane-12 word
         (docs/protocol.md §10): HIGH bypasses the coalescer wait window,
-        BULK donates its latency budget to batch filling."""
+        BULK donates its latency budget to batch filling.
+
+        The call is a span ``gateway.call`` on the calling thread, with the
+        id of its frame's ``(cid, seq)`` on the direct path."""
+        with tracing.span("gateway.call"):
+            return self._call(service, payload, token, timeout, priority)
+
+    def _call(self, service: str, payload, token: Optional[int],
+              timeout: Optional[float], priority: int) -> torch.Tensor:
         deadline = None if timeout is None \
             else time.monotonic() + timeout
         if self.retry_budget is not None:
@@ -2622,6 +2649,7 @@ class GatewayClient:
             deadline_us = framing.deadline_to_us(remaining)
             timeout = min(remaining, self.gw.transport.timeout)
         with self._lock:
+            tracing.set_call(self.cid, chan.seq)
             # fully in-place send: route words + the sealed gateway frame
             # are written straight into the transport's staging storage
             # (the request region on mpklink)

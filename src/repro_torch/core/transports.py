@@ -97,6 +97,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint import msgpack_lite
 from repro_torch.core import framing
 from repro_torch.core import gateway
@@ -256,7 +257,8 @@ def _from_host(buf, device: torch.device) -> torch.Tensor:
 
 def _host(raw: torch.Tensor) -> np.ndarray:
     """uint8 bytes on any device as a host array (for the OS)."""
-    return raw.cpu().numpy()
+    with tracing.span("gateway.device_read"):
+        return raw.cpu().numpy()
 
 
 def _flat(obj):
@@ -1927,7 +1929,8 @@ class MPKLinkOptTransport(MPKLinkTransport):
 
 def _lanes(frame: torch.Tensor) -> tuple:
     """(absolute deadline or None, priority) of a verified frame."""
-    words = frame[0, :framing.PRIORITY_LANE + 1].cpu().tolist()
+    with tracing.span("gateway.device_read"):
+        words = frame[0, :framing.PRIORITY_LANE + 1].cpu().tolist()
     return (gateway.deadline_of(words[framing.DEADLINE_LANE]),
             words[framing.PRIORITY_LANE])
 

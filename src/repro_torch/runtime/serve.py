@@ -14,6 +14,16 @@ EOS/max_new.
 Each tick syncs with the host as the reference does: the sampled tokens go
 to numpy and every live slot's position is read back one by one.
 
+While the span recorder (:mod:`repro_torch.tracing`) is armed, a tick is
+the span ``engine.tick`` (attributes ``live``, ``admitted`` and
+``host_reads``, every device-to-host read it makes) over ``engine.admit``,
+``engine.decode_step`` (the host's dispatch of the step, its tokens'
+upload included), ``engine.sample`` (with the read of the sampled tokens)
+and ``engine.bookkeep`` (the per-slot loop); each admission emits
+``engine.queued``, from the handler's entry to the admission, with the
+request's call id and ``rid``. The service's handler is ``service.handler``
+over ``service.submit`` (the lock wait and the submission).
+
 The engine refuses what the reference's cannot serve: a state past a
 sliding window (a ring cache takes one position for the whole batch, and
 resetting a slot's row would corrupt its slot positions) and an
@@ -44,6 +54,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import gateway
 from repro_torch.core.transports import DeadlineExpired, ServiceCrashed
@@ -67,7 +78,12 @@ class Request:
     slot: int = -1
     done: bool = False
     submitted_at: float = 0.0
+    admitted_at: float = 0.0
     finished_at: float = 0.0
+    # the service handler's entry (0: submitted to the engine directly) and
+    # the gateway call it serves (tracing.call_id; None unless armed)
+    entered_at: float = 0.0
+    call: Optional[int] = None
 
 
 class ServingEngine:
@@ -112,7 +128,9 @@ class ServingEngine:
         req.submitted_at = time.perf_counter()
         self.queue.append(req)
 
-    def _admit(self):
+    def _admit(self) -> int:
+        """Board queued requests into free slots; → how many boarded."""
+        n = 0
         for b in range(self.B):
             if self.slots[b] is None and self.queue:
                 # priority-aware admission: the most urgent class boards
@@ -121,8 +139,15 @@ class ServingEngine:
                         key=lambda k: (gateway.priority_rank(
                             self.queue[k].priority), k))
                 req = self.queue.pop(i)
+                req.admitted_at = time.perf_counter()
+                if tracing.RECORDER.armed:
+                    tracing.emit("engine.queued",
+                                 int(1e9 * (req.entered_at or req.submitted_at)),
+                                 int(1e9 * req.admitted_at), call=req.call,
+                                 rid=req.rid)
                 req.slot = b
                 self.slots[b] = req
+                n += 1
                 # reset slot: zero its row of every leaf of the (nested)
                 # decode state, KV caches and SSM states alike, and its
                 # position
@@ -131,6 +156,7 @@ class ServingEngine:
                 self.state["pos"][b] = 0
                 self.current_token[b, 0] = req.prompt[0]
                 self.prompt_cursor[b] = 1
+        return n
 
     def _retire(self, b: int):
         req = self.slots[b]
@@ -141,33 +167,46 @@ class ServingEngine:
 
     # -- engine tick ---------------------------------------------------------
     def tick(self):
-        self._admit()
-        if all(s is None for s in self.slots):
-            return False
-        tokens = torch.from_numpy(self.current_token).to(self.device)
-        with torch.no_grad():
-            logits, self.state = decode_step(self.cfg, self.params, self.state,
-                                             tokens, impl=self.impl,
-                                             dtype=self.dtype)
-        nxt = self.sample(logits[:, -1]).cpu().numpy()
-        self.ticks += 1
-
-        for b, req in enumerate(self.slots):
-            if req is None:
-                continue
-            cur = int(self.prompt_cursor[b])
-            if cur < len(req.prompt):              # still feeding the prompt
-                self.current_token[b, 0] = req.prompt[cur]
-                self.prompt_cursor[b] = cur + 1
-                continue
-            tok = int(nxt[b])
-            req.generated.append(tok)
-            self.current_token[b, 0] = tok
-            pos = int(self.state["pos"][b])
-            if (len(req.generated) >= req.max_new
-                    or (req.eos_id is not None and tok == req.eos_id)
-                    or pos >= self.max_seq - 1):
-                self._retire(b)
+        with tracing.span("engine.tick") as sp:
+            with tracing.span("engine.admit"):
+                admitted = self._admit()
+            if all(s is None for s in self.slots):
+                if sp:
+                    sp.set(live=0, admitted=admitted, host_reads=0)
+                return False
+            with tracing.span("engine.decode_step"):
+                tokens = torch.from_numpy(self.current_token).to(self.device)
+                with torch.no_grad():
+                    logits, self.state = decode_step(
+                        self.cfg, self.params, self.state, tokens,
+                        impl=self.impl, dtype=self.dtype)
+            with tracing.span("engine.sample"):
+                nxt = self.sample(logits[:, -1]).cpu().numpy()
+            self.ticks += 1
+            if sp:
+                sp.set(live=sum(s is not None for s in self.slots),
+                       admitted=admitted)
+            reads = 1                               # the sampled tokens
+            with tracing.span("engine.bookkeep"):
+                for b, req in enumerate(self.slots):
+                    if req is None:
+                        continue
+                    cur = int(self.prompt_cursor[b])
+                    if cur < len(req.prompt):      # still feeding the prompt
+                        self.current_token[b, 0] = req.prompt[cur]
+                        self.prompt_cursor[b] = cur + 1
+                        continue
+                    tok = int(nxt[b])
+                    req.generated.append(tok)
+                    self.current_token[b, 0] = tok
+                    pos = int(self.state["pos"][b])
+                    reads += 1
+                    if (len(req.generated) >= req.max_new
+                            or (req.eos_id is not None and tok == req.eos_id)
+                            or pos >= self.max_seq - 1):
+                        self._retire(b)
+            if sp:
+                sp.set(host_reads=reads)
         return True
 
     def sample(self, last: torch.Tensor) -> torch.Tensor:
@@ -252,7 +291,8 @@ class EngineService:
         return self
 
     def close(self):
-        self._stop.set()
+        with self._lock:                # a handler registers under it
+            self._stop.set()
         self._work.set()
         if self._thread is not None:
             self._thread.join(timeout=10)
@@ -384,19 +424,27 @@ class EngineService:
 
     def handler(self, req) -> np.ndarray:
         """One prompt in, one int32 token array out. Blocks until the
-        request retires from the shared decode batch or its deadline."""
-        max_new, prompt = self._parse_req(req)
-        if self._stop.is_set():
-            raise RuntimeError("EngineService is closed")
-        prio = gateway.current_priority()
-        ev = threading.Event()
-        with self._lock:
-            rid = next(self._rid)
-            self._events[rid] = ev
-            self.engine.submit(Request(rid=rid, prompt=prompt,
-                                       max_new=max_new, priority=prio))
-        self._work.set()
-        return self._await(rid, ev, self._deadline())
+        request retires from the shared decode batch or its deadline. A
+        closed service refuses it at once: the close check and the
+        registration share one hold of the lock, which ``close`` takes to
+        set its flag."""
+        with tracing.span("service.handler"):
+            entered = time.perf_counter()
+            max_new, prompt = self._parse_req(req)
+            prio = gateway.current_priority()
+            call = gateway.current_call()
+            ev = threading.Event()
+            with tracing.span("service.submit"):
+                with self._lock:
+                    if self._stop.is_set():
+                        raise RuntimeError("EngineService is closed")
+                    rid = next(self._rid)
+                    self._events[rid] = ev
+                    self.engine.submit(Request(
+                        rid=rid, prompt=prompt, max_new=max_new,
+                        priority=prio, entered_at=entered, call=call))
+            self._work.set()
+            return self._await(rid, ev, self._deadline())
 
     def handler_batch(self, reqs) -> List[np.ndarray]:
         """Batched prompt submission: all N prompts enter the engine queue
@@ -404,12 +452,13 @@ class EngineService:
         slot grid as a cohort. Returns the N token arrays in order; if any
         request fails its typed error is raised and the rest of the cohort
         is cancelled."""
+        entered = time.perf_counter()
         parsed = [self._parse_req(r) for r in reqs]
-        if self._stop.is_set():
-            raise RuntimeError("EngineService is closed")
         prio = gateway.current_priority()   # the cohort's most-urgent class
         waits = []
         with self._lock:
+            if self._stop.is_set():
+                raise RuntimeError("EngineService is closed")
             self.cohorts.append(len(parsed))
             for max_new, prompt in parsed:
                 rid = next(self._rid)
@@ -417,7 +466,7 @@ class EngineService:
                 self._events[rid] = ev
                 self.engine.submit(
                     Request(rid=rid, prompt=prompt, max_new=max_new,
-                            priority=prio))
+                            priority=prio, entered_at=entered))
                 waits.append((rid, ev))
         self._work.set()
         deadline = self._deadline()

@@ -8,8 +8,8 @@ not have (``launch.dryrun`` places them when it counts a step on a mesh).
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import decode_step, forward, loss_fn
 from repro_torch.models.transformer import Impl
@@ -50,7 +50,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, impl: Impl = Impl()):
     graph) and are updated in place; metrics are {"loss" (mean over
     microbatches), "lr", "grad_norm"}. The forward, backward and optimizer of each call
     are ``torch.profiler`` ranges (``train_step.forward`` / ``.backward``
-    / ``.optimizer``), which ``launch/profile_train.py`` reads."""
+    / ``.optimizer``, ``tracing.phase``), and spans of the same names while
+    the span recorder is armed (forward and backward with their ``micro``
+    index); the f32 gradient sum of each microbatch after the first is
+    the span ``train_step.accumulate`` (its ``micro``)."""
     dtype = DTYPES[tcfg.dtype]
     micro = tcfg.microbatch_size
 
@@ -68,24 +71,27 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, impl: Impl = Impl()):
             gsum, loss_sum = None, None
             for i in range(n_micro):
                 mb = {k: _microbatch(v, i, n_micro) for k, v in batch.items()}
-                with record_function("train_step.forward"):
+                with tracing.phase("train_step.forward", micro=i):
                     loss, _ = loss_fn(cfg, params, mb, impl=impl, dtype=dtype)
-                with record_function("train_step.backward"):
+                with tracing.phase("train_step.backward", micro=i):
                     grads = torch.autograd.grad(loss, flat,
                                                 materialize_grads=True)
                 if gsum is None:
                     gsum = [g.to(train_grad_dtype(p.dtype, n_micro))
                             for p, g in zip(flat, grads)]
                 else:
-                    for a, g in zip(gsum, grads):
-                        a.add_(g.float())
+                    with tracing.span("train_step.accumulate") as sp:
+                        if sp:
+                            sp.set(micro=i)
+                        for a, g in zip(gsum, grads):
+                            a.add_(g.float())
                 loss_sum = loss.detach() if loss_sum is None \
                     else loss_sum + loss.detach()
                 del loss, grads
         finally:
             for p, r in zip(flat, found):
                 p.requires_grad_(r)
-        with record_function("train_step.optimizer"):
+        with tracing.phase("train_step.optimizer"):
             if n_micro > 1:
                 gsum = [g.div_(n_micro) for g in gsum]
             params, opt_state, om = adamw_update(
