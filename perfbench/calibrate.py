@@ -8,10 +8,13 @@ and value updates swapped, planted in the reference's result), the
 metrics and the card. ``--control 0`` reads the program's numbers alone.
 
     python3 perfbench/calibrate.py --workload qwen3-14b.train \
-        --seeds 11,12,13 --seconds 5 [--trace 1] [--control 1] [--out FILE]
+        --seeds 11,12,13 --seconds 5 [--trace 1] [--control 1] [--out FILE] \
+        [--rec FILE]
 
 ``--out`` also gets every checked position's readings (serving) and every
-leaf's (training). Not part of a benchmark run: the runs of ``run.py``
+leaf's (training); ``--rec`` gets each run's whole record, what the
+per-layer readers read, one JSON line a run, for reading it again with
+other readers. Not part of a benchmark run: the runs of ``run.py``
 never compute the control.
 """
 import time
@@ -38,6 +41,8 @@ def one(args) -> dict:
     cell = bench.load_cell(args.workload)
     text, checks, out = run_cell(cell, args.seed, args.seconds, bool(args.trace),
                                  resolve("cuda"), T_START, calibrate=bool(args.control))
+    if args.rec:
+        save_rec(args, out.rec)
     doc = json.loads(text)
     return {"workload": args.workload, "seed": args.seed, "trace": args.trace,
             "correct": doc["correct"], "metrics": doc["metrics"],
@@ -49,6 +54,12 @@ def one(args) -> dict:
                     or k == "setup_marks_s"},
             "setup_s": out.setup_s, "e2e": out.e2e,
             "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def save_rec(args, rec: dict) -> None:
+    with open(args.rec, "a") as f:
+        f.write(json.dumps({"workload": args.workload, "seed": args.seed,
+                            "rec": rec}, default=str) + "\n")
 
 
 def brief(rec: dict) -> dict:
@@ -72,6 +83,7 @@ def main() -> int:
     ap.add_argument("--trace", type=int, default=0)
     ap.add_argument("--control", type=int, default=1)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--rec", default=None)
     args = ap.parse_args()
     if args.seed is not None:
         print("CALIBRATION " + json.dumps(one(args)), flush=True)
@@ -82,7 +94,8 @@ def main() -> int:
         p = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--workload", args.workload, "--seed", str(seed),
                             "--seconds", str(args.seconds), "--trace", str(args.trace),
-                            "--control", str(args.control)],
+                            "--control", str(args.control)]
+                           + (["--rec", os.path.abspath(args.rec)] if args.rec else []),
                            capture_output=True, text=True)
         lines = [ln for ln in p.stdout.splitlines() if ln.startswith("CALIBRATION ")]
         rec = json.loads(lines[-1][12:]) if lines else {

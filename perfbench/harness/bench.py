@@ -10,7 +10,8 @@ adding files and entries, never by editing one:
   ``modes/<mode>.py``, which drives the program;
 * ``limits/<workload>.json``  — the limits that decide ``correct``;
 * ``reference/<family>.py``   — the plain reference of the configuration's
-  family (``family`` in its file);
+  family (``family`` in its file), and the family's own model counts
+  where it defines them (``costs``);
 * ``metrics/<metric>.py``     — the reader of one per-layer metric.
 
 Every path is relative to a checkout's root (``ROOT`` by default).
@@ -24,6 +25,8 @@ from pathlib import Path
 from types import ModuleType
 from typing import Dict, List
 
+from perfbench.harness.model import FILE_KEY, ROOT_KEY
+
 PERFBENCH = Path(__file__).resolve().parents[1]
 ROOT = PERFBENCH.parent
 
@@ -31,6 +34,16 @@ ROOT = PERFBENCH.parent
 def load_json(path: Path) -> dict:
     with open(path) as f:
         return json.load(f)
+
+
+def load_config(file: str, root: Path = ROOT) -> dict:
+    """The configuration file ``file`` (relative to the checkout ``root``),
+    with the checkout and the file recorded in it, so that what reads it
+    finds the family's files in that checkout (``model.ROOT_KEY``,
+    ``model.FILE_KEY``)."""
+    cfg = load_json(Path(root) / file)
+    cfg[ROOT_KEY], cfg[FILE_KEY] = str(root), file
+    return cfg
 
 
 @dataclass
@@ -66,7 +79,7 @@ def load_cell(workload: str, root: Path = ROOT) -> Cell:
                        f"(it has {sorted(specs)})")
     spec = specs[workload]
     configs = {c["name"]: c for c in bench["configs"]}
-    config = load_json(root / configs[spec["config"]]["file"])
+    config = load_config(configs[spec["config"]]["file"], root)
     traffic = load_json(root / "perfbench" / "traffic" / f"{spec['traffic']}.json")
     limits = load_json(root / "perfbench" / "limits" / f"{workload}.json")
     e2e = [m for m in bench["end_to_end"]

@@ -10,11 +10,53 @@ functions, kept here so the program cannot change its own yardstick).
 
 A configuration is its file's dict with the published key names
 (``hidden_size``, ``num_attention_heads``, ...).
+
+The model's counts (``params_no_embed``, ``attn_flops_token``,
+``kv_row_bytes``, ``train_step_flops``, and ``decode_weight_bytes`` and
+``decode_tick_bound_s``, built from them) are the family's where the
+configuration's ``reference/<family>.py`` defines a function of the same
+name and signature: a family that is not attention and a GLU FFN in every
+layer counts its own work there, under ``perfbench/`` as the rest of the
+yardstick. Elsewhere they are the arithmetic below, which stays reachable
+as ``<count>.__wrapped__`` for a family's count to build on.
 """
 from __future__ import annotations
 
+import functools
+import inspect
+import numbers
+
+from perfbench.harness import bench
+from perfbench.harness.model import ROOT_KEY
+
 PEAK_BF16 = 989e12          # FLOP/s, tensor cores
 HBM_BW = 3.35e12            # bytes/s
+
+
+@functools.lru_cache(maxsize=None)
+def _own(root: str, family: str, fn):
+    """The family's function of ``fn``'s name in ``<root>/perfbench/
+    reference/<family>.py``, or None. Raises ValueError where its
+    signature is not ``fn``'s."""
+    own = getattr(bench.reference_module(family, root), fn.__name__, None)
+    if own is None:
+        return None
+    sig = [(p.name, p.kind, p.default) for p in inspect.signature(own).parameters.values()]
+    want = [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
+    if sig != want:
+        raise ValueError(f"reference/{family}.py: {fn.__name__}{inspect.signature(own)} "
+                         f"is not {fn.__name__}{inspect.signature(fn)}")
+    return own
+
+
+def _model_count(fn):
+    """``fn``, or the configuration's family's own function of its name."""
+    @functools.wraps(fn)
+    def count(cfg: dict, *args, **kw):
+        own = _own(cfg.get(ROOT_KEY) or str(bench.ROOT), cfg["family"], fn) \
+            if cfg.get("family") else None
+        return (own or fn)(cfg, *args, **kw)
+    return count
 
 
 def dims(cfg: dict) -> dict:
@@ -44,6 +86,7 @@ def layer_params(cfg: dict, active: bool) -> int:
     return n
 
 
+@_model_count
 def params_no_embed(cfg: dict, active: bool = True) -> int:
     """Parameters a token's forward multiplies by: every layer (active
     experts only, with ``active``), the final norm and the LM head; the
@@ -52,6 +95,7 @@ def params_no_embed(cfg: dict, active: bool = True) -> int:
     return d["L"] * layer_params(cfg, active) + d["D"] + d["D"] * d["V"]
 
 
+@_model_count
 def attn_flops_token(cfg: dict, kv_len: int) -> float:
     """Attention FLOPs of one query over ``kv_len`` keys in every layer:
     4·H·Dh a key (scores and the weighted sum)."""
@@ -63,6 +107,7 @@ def causal_pairs(S: int) -> int:
     return S * (S + 1) // 2
 
 
+@_model_count
 def train_step_flops(cfg: dict, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6·N·T (N without the input
     embedding, active experts only) and causal attention, three times its
@@ -80,6 +125,7 @@ def bound_s(nbytes: float, flops: float, peak: float = PEAK_BF16) -> float:
 
 # -- the decode tick ---------------------------------------------------------
 
+@_model_count
 def decode_weight_bytes(cfg: dict, elem: int, batch: int) -> float:
     """Bytes of weights a decode tick reads once: every layer with all its
     experts (a tick of many tokens routes to every expert), the final norm
@@ -88,20 +134,35 @@ def decode_weight_bytes(cfg: dict, elem: int, batch: int) -> float:
     return elem * (params_no_embed(cfg, active=False) + batch * d["D"])
 
 
+@_model_count
 def kv_row_bytes(cfg: dict, elem: int) -> float:
     """Bytes of one cached position's K and V in every layer."""
     d = dims(cfg)
     return 2.0 * d["Hkv"] * d["Dh"] * elem * d["L"]
 
 
+@_model_count
 def decode_tick_bound_s(cfg: dict, elem: int, batch: int, live: int,
-                        kv_rows: int) -> float:
+                        kv_rows) -> float:
     """The tick's least time: weights read once and the live cache read
-    once over HBM, or the model FLOPs of its ``live`` tokens (attention
-    over ``kv_rows`` keys in all) over the bf16 peak."""
-    nbytes = decode_weight_bytes(cfg, elem, batch) + kv_rows * kv_row_bytes(cfg, elem)
-    flops = 2.0 * params_no_embed(cfg, True) * live + attn_flops_token(cfg, 1) * kv_rows
+    once over HBM, or the model FLOPs of its ``live`` tokens over the bf16
+    peak. ``kv_rows`` is the keys each live slot attends, a list (each
+    slot's attention is ``attn_flops_token`` of its keys), or their sum
+    (attention linear in the keys)."""
+    if isinstance(kv_rows, numbers.Integral):
+        rows, attn = kv_rows, attn_flops_token(cfg, 1) * kv_rows
+    else:
+        rows, attn = sum(kv_rows), sum(attn_flops_token(cfg, k) for k in kv_rows)
+    nbytes = decode_weight_bytes(cfg, elem, batch) + rows * kv_row_bytes(cfg, elem)
+    flops = 2.0 * params_no_embed(cfg, True) * live + attn
     return bound_s(nbytes, flops)
+
+
+def tick_slots(rec: dict) -> list:
+    """A serving record's keys a tick, one list a tick of one count a live
+    slot (``kv_slots``); a record with each tick's sum alone (``kv``) gives
+    that sum as one slot."""
+    return rec.get("kv_slots") or [[k] for k in rec["kv"]]
 
 
 def decode_attention_cost(cfg: dict, elem: int, batch: int, rows: int) -> dict:

@@ -11,8 +11,8 @@ import time
 from collections import Counter, defaultdict
 from typing import Dict, List, Tuple
 
-# kernel families by name (case-insensitive), first match wins; a copy of
-# the port's launch/profile_train.py table
+# kernel families by name (case-insensitive), first match wins; the
+# benchmark's own table (the port keeps none)
 FAMILIES = (
     ("flash_attention_bwd", r"flash_bwd"),
     ("flash_attention", r"flash_fwd"),

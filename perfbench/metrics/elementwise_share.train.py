@@ -1,7 +1,7 @@
 """elementwise_share.train — elementwise and copy kernels' share of the
 device's busy time in the traced steps (the families ``elementwise`` and
-``copy_cat_memcpy`` of the port's ``launch/profile_train.py``), in
-percent. Source: the device trace."""
+``copy_cat_memcpy`` of ``harness/trace.py``'s ``FAMILIES``), in percent.
+Source: the device trace."""
 
 
 def read(rec):

@@ -6,8 +6,9 @@ greedy decode, ``models.decode_step`` and the kernels).
 
 The benchmark's own instruments sit on the instance, never in the
 program: a timing wrapper around the handler; a wrapper on the engine's
-``sample`` that counts live slots and cached keys each tick and copies the
-last logits of the checked requests into a buffer on the card.
+``sample`` that counts live slots and each one's cached keys each tick
+and copies the last logits of the checked requests into a buffer on the
+card.
 
 Set-up makes the weights from the seed on the card, builds the gateway and
 the callers' sessions, and runs the traffic until ``warmup_requests``
@@ -58,10 +59,11 @@ class HandlerTimer:
 
 
 class Probe:
-    """Wraps ``engine.sample`` on the instance: each tick, the live slots
-    and the keys they attend (position + 1 each, from the engine's host
-    cursors), and for the checked requests the last logits of every tick
-    that yields one of their tokens, copied into ``buf``. Wraps
+    """Wraps ``engine.sample`` on the instance: each tick, the live slots,
+    the keys each attends (position + 1, from the engine's host cursors:
+    ``kv_slots``) and their sum (``kv``), and for the checked requests the
+    last logits of every tick that yields one of their tokens, copied into
+    ``buf``. Wraps
     ``engine.tick`` too, so that :meth:`profile` can run
     ``torch.profiler`` on the engine's own thread (the profiler records
     the host operators of the thread that starts it)."""
@@ -71,6 +73,7 @@ class Probe:
         self.engine = engine
         self.live: List[int] = []
         self.kv: List[int] = []
+        self.kv_slots: List[tuple] = []
         self.keys = {(tuple(int(t) for t in requests[i][0]), requests[i][1]): i
                      for i in check_idx}
         self.offset, n = {}, 0
@@ -127,21 +130,21 @@ class Probe:
     def sample(self, last):
         out = self._sample(last)
         eng = self.engine
-        live = kv = 0
+        slots = []
         for b, req in enumerate(eng.slots):
             if req is None:
                 continue
-            live += 1
             cur, g = int(eng.prompt_cursor[b]), len(req.generated)
-            kv += cur + g
+            slots.append(cur + g)
             i = self._seen.get(req.rid)
             if i is None:
                 i = self._seen[req.rid] = self.keys.get(
                     (tuple(int(t) for t in req.prompt), req.max_new), -1)
             if i >= 0 and cur >= len(req.prompt):
                 self.buf[self.offset[i] + g].copy_(last[b])
-        self.live.append(live)
-        self.kv.append(kv)
+        self.live.append(len(slots))
+        self.kv.append(sum(slots))
+        self.kv_slots.append(tuple(slots))     # a tuple of ints: no garbage collector work
         return out
 
 
@@ -219,11 +222,12 @@ class ClosedLoop:
 
 
 def shut(svc, loop: ClosedLoop, patience: float = 60.0) -> list:
-    """Close the service until every caller has ended. The handler checks
-    for a close and registers its request without a lock between, so a
-    call can register after ``close`` released the pending ones; the next
-    ``close`` releases it. → the callers still running after
-    ``patience`` seconds."""
+    """Close the service and wait for every caller to end. The service's
+    handler checks for a close and registers its request under one hold of
+    the lock that ``close`` takes, so one ``close`` releases every call;
+    the loop closes again while callers remain, an idempotent guard that
+    bounds the wait. → the callers still running after ``patience``
+    seconds."""
     end = time.monotonic() + patience
     while True:
         svc.close()
@@ -329,6 +333,7 @@ def run(ctx) -> Outcome:
     rec = {"mode": "serve", "config": cfg, "traffic": mix, "elem": elem,
            "window_s": t1 - t0, "ticks": c1["ticks"] - c0["ticks"],
            "live": probe.live[lo:hi], "kv": probe.kv[lo:hi],
+           "kv_slots": probe.kv_slots[lo:hi],
            "answered": len(answered), "output_tokens": win["output_tokens"],
            "gateway_s": sum(r["t_end"] - r["t_start"] - r["handler_s"]
                             for r in answered),
